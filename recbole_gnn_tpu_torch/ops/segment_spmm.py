@@ -1,0 +1,177 @@
+"""Segment SpMM over dst-sorted edges — the port's CUDA kernel.
+
+Counterpart of ``recbole_gnn_tpu/ops/pallas_spmm.py``.  Both compute
+
+    out[d] = Σ_{e: dst[e]=d} w[e] · x[src[e]]
+
+over an edge list sorted by destination and padded with weight-0
+edges.  The Pallas kernel streamed a materialised message array in
+≤ 2²⁰-edge segments through one-hot MXU products; the Hopper kernel
+(``csrc/segment_spmm.cu``) gathers ``x[src]`` itself, one warp per
+destination row, driven by a CSR row pointer built here on the host
+(the counterpart of ``build_pallas_meta``).
+
+The host padding (``segment_layout``/``pad_edges``) is a copy of the
+JAX package's, so a padded ``Graph`` holds the same arrays element for
+element in both packages — SGL's sentinel-row masking relies on that
+padding contract.
+
+``segment_spmm`` launches the kernel for CUDA tensors and runs the
+plain version, :func:`spmm_coo`, for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from recbole_gnn_tpu_torch.ops import cuda_build
+
+EC = 4096          # edges per chunk of the TPU layout (padding granule)
+SEG_MAX = 1 << 20  # max edges per segment of the TPU layout
+
+# peak bytes of the gathered (E, D) message array in the plain version
+# before it accumulates over edge chunks
+MSGS_BYTES_BUDGET = 1 << 32     # 4 GB
+
+
+def segment_layout(e: int, ec: int | None = None,
+                   seg_max: int | None = None) -> tuple[int, int]:
+    """(n_seg, seg): smallest equal-size ec-aligned segmentation of an
+    edge list of length e with seg <= seg_max (up to ec rounding)."""
+    ec = ec or EC
+    seg_max = max(seg_max or SEG_MAX, ec)
+    e_ec = -(-max(e, 1) // ec) * ec
+    n_seg = -(-e_ec // seg_max)
+    seg = -(-e_ec // (n_seg * ec)) * ec
+    return n_seg, seg
+
+
+def pad_edges(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
+              n_nodes: int, ec: int | None = None,
+              seg_max: int | None = None
+              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sort by dst and pad to the segment layout with weight-0 edges on
+    the last destination row (keeps dst non-decreasing; src 0 is always
+    a valid gather row even for rectangular graphs)."""
+    order = np.argsort(dst, kind="stable")
+    src, dst, weight = src[order], dst[order], weight[order]
+    n_seg, seg = segment_layout(len(src), ec, seg_max)
+    e_pad = n_seg * seg
+    if e_pad > len(src):
+        pad = e_pad - len(src)
+        src = np.concatenate([src, np.zeros(pad, src.dtype)])
+        dst = np.concatenate([dst, np.full(pad, n_nodes - 1, dst.dtype)])
+        weight = np.concatenate([weight, np.zeros(pad, weight.dtype)])
+    return (src.astype(np.int32), dst.astype(np.int32),
+            weight.astype(np.float32))
+
+
+def build_rowptr(dst_sorted: np.ndarray, n_nodes: int) -> np.ndarray:
+    """CSR row pointer of a dst-sorted edge list: edges of row r are
+    ``[rowptr[r], rowptr[r+1])``; (n_nodes + 1,) int64."""
+    return np.searchsorted(dst_sorted, np.arange(n_nodes + 1)).astype(np.int64)
+
+
+def spmm_coo(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
+             x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """The plain version: out[d] = Σ_{e: dst[e]=d} weight[e]·x[src[e]]
+    by ``index_select`` × w, then ``index_add_``.
+
+    Graphs whose (E, D) message array would exceed MSGS_BYTES_BUDGET
+    accumulate over edge chunks, so it never materialises whole."""
+    e, d = src.shape[0], x.shape[1]
+    out = torch.zeros((n_out, d), dtype=x.dtype, device=x.device)
+    chunk = max(1, min(e, MSGS_BYTES_BUDGET // max(1, 2 * d * 4)))
+    for s in range(0, e, chunk):
+        msgs = (x.index_select(0, src[s:s + chunk])
+                * weight[s:s + chunk, None].to(x.dtype))
+        out.index_add_(0, dst[s:s + chunk], msgs)
+    return out
+
+
+def _vec_width(x: torch.Tensor) -> int:
+    """Widest vector load (floats) that every row of x allows."""
+    d, ptr = x.shape[1], x.data_ptr()
+    for vec in (4, 2):
+        if d % vec == 0 and ptr % (4 * vec) == 0:
+            return vec
+    return 1
+
+
+def _check_cuda_args(src, dst, weight, rowptr, x):
+    dev = x.device
+    for name, t, dtype, ndim in (("src", src, torch.int32, 1),
+                                 ("dst", dst, torch.int32, 1),
+                                 ("weight", weight, torch.float32, 1),
+                                 ("rowptr", rowptr, torch.int64, 1),
+                                 ("x", x, torch.float32, 2)):
+        if t.device != dev:
+            raise ValueError(f"segment_spmm: {name} is on {t.device}, x on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"segment_spmm: {name} must be {dtype}, got {t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"segment_spmm: {name} must be {ndim}-D, "
+                             f"got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"segment_spmm: {name} must be contiguous")
+    e = src.shape[0]
+    if dst.shape[0] != e or weight.shape[0] != e:
+        raise ValueError(
+            f"segment_spmm: src/dst/weight lengths differ "
+            f"({e}, {dst.shape[0]}, {weight.shape[0]})")
+    if rowptr.shape[0] < 1:
+        raise ValueError("segment_spmm: rowptr needs n_rows + 1 >= 1 entries")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "segment_spmm has no backward yet (ROADMAP K1ᵀ, the training "
+            "slice); call it under torch.no_grad()")
+
+
+def segment_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
+                 rowptr: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out[r] = Σ_{e ∈ [rowptr[r], rowptr[r+1])} weight[e]·x[src[e]].
+
+    Edges are sorted by ``dst`` and ``rowptr`` is their CSR row pointer
+    (:func:`build_rowptr`); the output has ``len(rowptr) - 1`` rows.
+    A CUDA ``x`` launches the kernel (f32 ``x``/``weight``, int32
+    ``src``/``dst``, int64 ``rowptr``, all contiguous on one card; any
+    other input raises).  A CPU ``x`` runs :func:`spmm_coo`.
+    ``segment_spmm.launches`` counts kernel launches."""
+    n_rows = rowptr.shape[0] - 1
+    if x.device.type == "cpu":
+        return spmm_coo(src, dst, weight, x, n_rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"segment_spmm: unsupported device {x.device}")
+    _check_cuda_args(src, dst, weight, rowptr, x)
+    d = x.shape[1]
+    out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
+    if n_rows == 0 or d == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.segment_spmm_f32(
+            x.data_ptr(), src.data_ptr(), weight.data_ptr(),
+            rowptr.data_ptr(), out.data_ptr(), n_rows, d, _vec_width(x),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_spmm launch failed: CUDA error {rc}")
+    segment_spmm.launches += 1
+    return out
+
+
+segment_spmm.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("segment_spmm")
+    fn = lib.segment_spmm_f32
+    if fn.argtypes is None:
+        vp = ctypes.c_void_p
+        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, vp]
+        fn.restype = ctypes.c_int
+    return lib
