@@ -2,17 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``recbole_gnn_tpu_torch/csrc``,
-holds it against its plain PyTorch version at the serving path's shape
-and at edge-case shapes, then drives the serving path end to end
-through the entry points a user calls: LightGCN at its published width
-(embedding_size 64, 3 layers) on a seeded synthetic dataset of the
-LightGCN paper's Gowalla shape (29,858 users × 40,981 items, 1,027,370
-interactions), a checkpoint with seeded random weights, ``export_artifact``
-on the card, ``RecServer`` for batches of 1/8/64/1024 users and one
-HTTP request.
+Builds the port's CUDA kernel from ``recbole_gnn_tpu_torch/csrc`` and
+drives the port's two paths end to end through the entry points a user
+calls, on a seeded synthetic dataset of the LightGCN paper's Gowalla
+shape (29,858 users × 40,981 items, 1,027,370 interactions) with
+LightGCN at its published width (embedding_size 64, 3 layers) on the
+sparse graph (``sparse_spmm_impl: pallas``):
 
-Prints the card's name and power limit, the build, timing and check
+1. training: ``run_recbole_gnn_tpu`` for 2 epochs — 415 steps of
+   2,048 pairs each, every step 3 forward SpMMs and, in the backward,
+   3 transpose SpMMs on the kernel — with full-sort validation after
+   each epoch, a checkpoint at the best epoch and the test evaluation;
+2. serving: ``export_artifact`` from the trained checkpoint, then
+   ``RecServer`` for batches of 1/8/64/1024 users and one HTTP request.
+
+Each path runs with the launch counters set to 0 just before it and
+read just after.  Then it holds one training step on the kernel
+against the same step on the plain version, the kernel forward (K1)
+and transpose (K1ᵀ) against their plain versions at the slice shape and
+at edge-case shapes, and times both kernels.
+
+Prints the card's name and power limit, the build, check and timing
 lines, then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when there is no CUDA device or any check fails.  Imports nothing of
@@ -22,6 +32,7 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,10 +48,12 @@ import torch
 SEED = 2020
 N_LAYERS = 3
 EMBEDDING_SIZE = 64
+EPOCHS = 2
 # the LightGCN paper's Gowalla statistics (He et al., 2020, Table 1)
 GOWALLA_SHAPE = {"n_users": 29858, "n_items": 40981, "n_inter": 1027370}
 BATCHES = (1, 8, 64, 1024)
 TOP_K = 10
+TIMED_STEPS = 25           # the separately timed sample of training steps
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate
 HBM_BYTES_PER_S = 3.35e12
@@ -51,6 +64,14 @@ FP32_FLOPS = 67e12
 # bounded by a multiple of the unit roundoff times the sum of absolute
 # terms (empty rows must match exactly: both write 0)
 TOL_REL_ABSSUM = 1e-4
+
+# one training step, kernel against plain: the same f32 sums in another
+# order through 3 layers forward and 3 back, plus the atomics of
+# PyTorch's own gather backward (final[user]), whose bits change from
+# run to run.  Gradients: |Δ| ≤ STEP_RTOL·|g| + STEP_ATOL_FRAC·max|g|
+# (the atol covers entries that cancel toward 0); the loss: STEP_RTOL.
+STEP_RTOL = 1e-4
+STEP_ATOL_FRAC = 1e-5
 
 
 def log(msg: str):
@@ -109,7 +130,7 @@ def write_gowalla_shape(root: str, name: str, seed: int, n_users: int,
 def time_cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``reps`` launches, each timed
     with CUDA events after a write of 256 MB that evicts the 50 MB L2
-    (the export's layers find their inputs cold at this size too)."""
+    (the path's layers find their inputs cold at this size too)."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
@@ -126,66 +147,116 @@ def time_cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def spmm_bound_ms(graph, d: int) -> tuple[float, int, int]:
-    """Least time for one SpMM over ``graph`` at width ``d``: the larger
-    of bytes moved (x read once, out written once, src/weight/rowptr
-    read once) over HBM bandwidth and 2·E·d flops over the fp32 rate."""
-    n_bytes = (graph.n_src_nodes * d * 4 + graph.n_nodes * d * 4
-               + graph.src.numel() * 4 + graph.weight.numel() * 4
-               + graph.rowptr.numel() * 8)
-    flops = 2 * graph.src.numel() * d
+def spmm_bound_ms(n_out: int, n_in: int, e: int, n_ptr: int,
+                  d: int) -> tuple[float, int, int]:
+    """Least time for one SpMM: the larger of the bytes it must move (x
+    read once, out written once, the int32 gather index, the f32 weight
+    and the int64 row pointer read once) over HBM bandwidth and its
+    2·E·d flops over the fp32 rate."""
+    n_bytes = n_in * d * 4 + n_out * d * 4 + e * 4 + e * 4 + n_ptr * 8
+    flops = 2 * e * d
     return (max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
             n_bytes, flops)
 
 
+def bound_by(n_bytes: int, flops: int) -> str:
+    return ("bytes" if n_bytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+            else "operations")
+
+
+def sorted_csr(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
+               n_rows: int, n_cols: int) -> torch.Tensor:
+    """CSR of real edges with the columns sorted in each row
+    (cuSPARSE's invariants) — the ``torch.sparse.mm`` yardstick, which
+    the port never calls."""
+    key = rows.long() * n_cols + cols.long()
+    order = torch.argsort(key)
+    counts = torch.bincount(rows.long(), minlength=n_rows)
+    rowptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=rows.device)
+    rowptr[1:] = torch.cumsum(counts, 0)
+    warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+    warnings.filterwarnings("ignore", message="Sparse invariant checks")
+    return torch.sparse_csr_tensor(rowptr, cols.long()[order], w[order],
+                                   size=(n_rows, n_cols),
+                                   check_invariants=True)
+
+
 # -- kernel vs plain ------------------------------------------------------
 
-def check_kernel(name: str, graph, x: torch.Tensor) -> float:
-    """Kernel vs plain version on the same inputs; returns max |err|."""
-    from recbole_gnn_tpu_torch.ops.segment_spmm import segment_spmm, spmm_coo
-    got = segment_spmm(graph.src, graph.dst, graph.weight, graph.rowptr, x)
-    want = spmm_coo(graph.src, graph.dst, graph.weight, x, graph.n_nodes)
-    abssum = spmm_coo(graph.src, graph.dst, graph.weight.abs(), x.abs(),
-                      graph.n_nodes)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    excess = float((err - TOL_REL_ABSSUM * abssum).max())
-    max_err = float(err.max())
-    log(f"kernel check {name}: n={graph.n_nodes} e_pad={graph.src.numel()} "
-        f"d={x.shape[1]} max_abs_err={max_err:.3e} "
-        f"empty_rows={int((graph.rowptr[1:] == graph.rowptr[:-1]).sum())}")
-    if not (excess <= 0.0 and torch.isfinite(got).all()):
-        raise AssertionError(
-            f"segment_spmm disagrees with spmm_coo on {name}: max_abs_err "
-            f"{max_err:.3e} exceeds {TOL_REL_ABSSUM} x sum|w x| by {excess:.3e}")
-    return max_err
+def check_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor
+                  ) -> tuple[float, float]:
+    """K1 (forward, on x) and K1ᵀ (transpose, on the cotangent g) against
+    their plain versions on the same inputs.  K1ᵀ is held against the
+    plain version over the reverse arrays and, to check those arrays
+    too, over the forward arrays with src and dst swapped.  Returns
+    (max |err| forward, max |err| transpose)."""
+    from recbole_gnn_tpu_torch.ops.segment_spmm import (
+        segment_spmm, segment_spmm_transpose, spmm_coo)
+    errs = []
+    fwd = (graph.src, graph.dst, graph.weight)
+    rev = (graph.rev_src, graph.rev_dst, graph.rev_weight)
+    swapped = (graph.dst, graph.src, graph.weight)
+    for kind, got, plains, inp, n_out in (
+            ("K1", segment_spmm(graph.src, graph.dst, graph.weight,
+                                graph.rowptr, x), (fwd,), x, graph.n_nodes),
+            ("K1T", segment_spmm_transpose(graph.rev_src, graph.rev_dst,
+                                           graph.rev_weight,
+                                           graph.rev_rowptr, g),
+             (rev, swapped), g, graph.n_src_nodes)):
+        s, d, w = plains[0]
+        abssum = spmm_coo(s, d, w.abs(), inp.abs(), n_out)
+        excess = max_err = 0.0
+        for s, d, w in plains:
+            err = (got - spmm_coo(s, d, w, inp, n_out)).abs()
+            excess = max(excess, float((err - TOL_REL_ABSSUM * abssum).max()))
+            max_err = max(max_err, float(err.max()))
+        torch.cuda.synchronize()
+        rp = graph.rowptr if kind == "K1" else graph.rev_rowptr
+        log(f"kernel check {kind} {name}: rows={n_out} "
+            f"e_pad={graph.src.numel()} d={inp.shape[1]} "
+            f"max_abs_err={max_err:.3e} "
+            f"empty_rows={int((rp[1:] == rp[:-1]).sum())}")
+        if not (excess <= 0.0 and torch.isfinite(got).all()
+                and got.shape == abssum.shape):
+            raise AssertionError(
+                f"{kind} disagrees with spmm_coo on {name}: max_abs_err "
+                f"{max_err:.3e} exceeds {TOL_REL_ABSSUM} x sum|w x| by "
+                f"{excess:.3e}")
+        errs.append(max_err)
+    return errs[0], errs[1]
 
 
 def edge_case_graphs(rng: np.random.Generator):
-    """(name, src, dst, w, n, d) of the CPU tests' edge cases."""
+    """(name, src, dst, w, n_dst, n_src, d) of the CPU tests' edge cases
+    and one rectangular bipartite graph (the transpose swaps the row
+    counts)."""
     cases = []
     n, e = 200_000, 3_000_000                       # several 2^20 segments
     cases.append(("multi_segment", rng.integers(0, n, e),
-                  rng.integers(0, n, e), n, 64))
+                  rng.integers(0, n, e), n, n, 64))
     n, e = 5000, 20000                              # empty rows incl. PAD 0
     cases.append(("empty_rows", rng.integers(0, n, e),
-                  2 * rng.integers(1, n // 4, e), n, 64))
+                  2 * rng.integers(1, n // 4, e), n, n, 64))
     n, e = 1000, 5000                               # block-overrun shape
     cases.append(("overrun", rng.integers(0, n, e), rng.integers(0, n, e),
-                  n, 64))
+                  n, n, 64))
     n, e = 3000, 30000
-    cases.append(("d48", rng.integers(0, n, e), rng.integers(0, n, e), n, 48))
+    cases.append(("d48", rng.integers(0, n, e), rng.integers(0, n, e), n, n,
+                  48))
     cases.append(("d33_scalar", rng.integers(0, n, e),
-                  rng.integers(0, n, e), n, 33))
+                  rng.integers(0, n, e), n, n, 33))
     cases.append(("d130_vec2_two_passes", rng.integers(0, n, e),
-                  rng.integers(0, n, e), n, 130))
+                  rng.integers(0, n, e), n, n, 130))
     cases.append(("d256_vec4_two_passes", rng.integers(0, n, e),
-                  rng.integers(0, n, e), n, 256))
+                  rng.integers(0, n, e), n, n, 256))
     n, e = 20000, 400_000                           # Zipf hub rows
     cases.append(("hub_rows", rng.integers(0, n, e),
-                  (rng.zipf(1.3, e) - 1) % n, n, 64))
-    return [(nm, s, d_, rng.normal(size=len(s)).astype(np.float32), n_, dim)
-            for nm, s, d_, n_, dim in cases]
+                  (rng.zipf(1.3, e) - 1) % n, n, n, 64))
+    n_dst, n_src, e = 30_000, 70_000, 1_500_000     # rectangular, Zipf src
+    cases.append(("rectangular", (rng.zipf(1.3, e) - 1) % n_src,
+                  rng.integers(1, n_dst, e), n_dst, n_src, 64))
+    return [(nm, s, d_, rng.normal(size=len(s)).astype(np.float32), nd, ns,
+             dim) for nm, s, d_, nd, ns, dim in cases]
 
 
 # -- serving checks --------------------------------------------------------
@@ -233,6 +304,159 @@ def http_roundtrip(srv, users: list[str], k: int) -> dict:
         t.join(timeout=30)
 
 
+# -- training: the first path -------------------------------------------------
+
+def train_config(tmp: str) -> dict:
+    """LightGCN at its published width on the sparse graph, 2 epochs of
+    the default 2,048-pair batches, validation after each epoch."""
+    return {"data_path": tmp, "checkpoint_dir": tmp,
+            "embedding_size": EMBEDDING_SIZE, "n_layers": N_LAYERS,
+            "enable_sparse": True, "sparse_spmm_impl": "pallas",
+            "epochs": EPOCHS, "eval_step": 1, "seed": SEED,
+            "state": "ERROR", "save_dataset": True,
+            "metrics_log_path": os.path.join(tmp, "train.jsonl")}
+
+
+def check_metrics(name: str, result: dict):
+    if not result or not all(math.isfinite(v) for v in result.values()):
+        raise AssertionError(f"{name} metrics missing or not finite: {result}")
+
+
+def time_train_steps(trainer, model, state: dict, host_batches: list,
+                     dev) -> tuple[list[float], dict]:
+    """Host-clock times (ms) of the training steps on ``host_batches``
+    after 5 warm-up steps, each synchronised, from the trained
+    checkpoint ``state``; a step is what ``fit`` does per batch: the
+    batch to the device, loss, backward, Adam update.  Then 10 more
+    steps under ``torch.profiler``: device time by kernel and the
+    device's busy share of their wall time (empty where the profiler
+    records no device activity)."""
+    from recbole_gnn_tpu_torch.eval.evaluator import to_device
+    from recbole_gnn_tpu_torch.train.checkpoint import params_from_numpy
+    params = params_from_numpy(state["params"], dev)
+    for p in params.values():
+        p.requires_grad_(True)
+    opt_state = params_from_numpy(state["opt_state"], dev)
+    rng = torch.Generator().manual_seed(SEED)
+
+    def step(b):
+        trainer.train_step(params, opt_state, model.consts, {},
+                           to_device(b, dev), rng)
+
+    times = []
+    for b in host_batches[:5 + TIMED_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    window = host_batches[5 + TIMED_STEPS:]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in window:
+            step(b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_us = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            device_us[evt.key] = evt.self_device_time_total
+    profile = {}
+    if device_us:
+        busy = sum(device_us.values())
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+        profile = {"steps": len(window),
+                   "wall_ms_per_step": wall_us / len(window) / 1e3,
+                   "device_ms_per_step": busy / len(window) / 1e3,
+                   "device_busy_share": busy / wall_us,
+                   "top_ms_per_step": {k[:60]: v / len(window) / 1e3
+                                       for k, v in top}}
+    return times[5:], profile
+
+
+def step_vs_plain(model, params: dict, batch: dict) -> dict:
+    """One training step's loss and embedding gradients on the kernel
+    against the same step with every SpMM replaced by the plain version,
+    differentiated by autograd; same params, same batch.  Returns the
+    errors; raises past the STEP_* tolerances."""
+    import recbole_gnn_tpu_torch.models.layers as layers_mod
+    from recbole_gnn_tpu_torch.ops.segment_spmm import (
+        segment_spmm_transpose, spmm_coo)
+
+    def loss_and_grads():
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        loss, _ = model.calculate_loss(p, model.consts, {}, batch, None)
+        grads = torch.autograd.grad(loss, [p["user_emb"], p["item_emb"]])
+        torch.cuda.synchronize()
+        return loss.detach(), grads
+
+    before = segment_spmm_transpose.launches
+    k_loss, k_grads = loss_and_grads()
+    if segment_spmm_transpose.launches - before != N_LAYERS:
+        raise AssertionError("the kernel step did not run K1ᵀ per layer")
+    kernel_spmm = layers_mod.spmm_any
+    layers_mod.spmm_any = lambda g, x: spmm_coo(g.src, g.dst, g.weight, x,
+                                                g.n_nodes)
+    try:
+        before = segment_spmm_transpose.launches
+        p_loss, p_grads = loss_and_grads()
+        if segment_spmm_transpose.launches != before:
+            raise AssertionError("the plain step launched the kernel")
+    finally:
+        layers_mod.spmm_any = kernel_spmm
+    out = {"loss_kernel": float(k_loss), "loss_plain": float(p_loss),
+           "loss_abs_err": float((k_loss - p_loss).abs())}
+    if not out["loss_abs_err"] <= STEP_RTOL * abs(out["loss_plain"]):
+        raise AssertionError(f"kernel step loss differs from plain: {out}")
+    for name, kg, pg in zip(("user_emb", "item_emb"), k_grads, p_grads):
+        err = (kg - pg).abs()
+        lim = STEP_RTOL * pg.abs() + STEP_ATOL_FRAC * pg.abs().max()
+        out[f"grad_{name}_max_abs_err"] = float(err.max())
+        out[f"grad_{name}_max_abs"] = float(pg.abs().max())
+        if not (bool((err <= lim).all()) and bool(torch.isfinite(kg).all())):
+            raise AssertionError(
+                f"kernel step {name} gradient differs from plain: "
+                f"max |err| {float(err.max()):.3e}, worst excess "
+                f"{float((err - lim).max()):.3e}")
+    return out
+
+
+# -- the H100 yardsticks of the TPU probes D1 and D2 ---------------------------
+
+def probe_yardsticks(dev) -> dict:
+    """One PyTorch call for the work of each TPU diagnostic kernel, at
+    its shapes (scripts/diag): D1 reduces a materialised f32 message
+    stream of 2,007,040 × 64 into 9,671 rows by a dst-sorted index
+    (``index_add_``); D2 gathers 2M rows of a 500k × 128 f32 table by
+    an int32 index (``index_select``).  With the bounds: D1 reads the
+    stream and dst and writes out once; D2 reads x once, idx once and
+    writes out once (all gathered rows served from HBM once)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n, e, d = 9671, 2_007_040, 64
+    msgs = torch.randn(e, d, device=dev, generator=gen)
+    dst = torch.sort(torch.randint(0, n, (e,), device=dev,
+                                   generator=gen)).values.to(torch.int32)
+    out = torch.zeros(n, d, device=dev)
+    d1_ms = time_cuda_ms(lambda: out.index_add_(0, dst, msgs))
+    d1_bytes = e * d * 4 + e * 4 + n * d * 4
+    del msgs, dst, out
+    n, e, d = 500_000, 2_000_000, 128
+    x = torch.randn(n, d, device=dev, generator=gen)
+    idx = torch.randint(0, n, (e,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    d2_ms = time_cuda_ms(lambda: x.index_select(0, idx))
+    d2_bytes = n * d * 4 + e * d * 4 + e * 4
+    del x, idx
+    return {"D1_index_add_ms": d1_ms,
+            "D1_bound_ms": d1_bytes / HBM_BYTES_PER_S * 1e3,
+            "D2_index_select_ms": d2_ms,
+            "D2_bound_ms": d2_bytes / HBM_BYTES_PER_S * 1e3}
+
+
 # -- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -240,16 +464,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from recbole_gnn_tpu_torch.config import Config
+    from recbole_gnn_tpu_torch.eval.evaluator import to_device
     from recbole_gnn_tpu_torch.models import get_model
     from recbole_gnn_tpu_torch.ops import cuda_build
-    from recbole_gnn_tpu_torch.ops.segment_spmm import segment_spmm, spmm_coo
+    from recbole_gnn_tpu_torch.ops.segment_spmm import (
+        segment_spmm, segment_spmm_transpose, spmm_coo)
     from recbole_gnn_tpu_torch.ops.spmm import build_graph
-    from recbole_gnn_tpu_torch.quick_start import create_dataset
+    from recbole_gnn_tpu_torch.quick_start import (create_dataset,
+                                                   data_preparation,
+                                                   run_recbole_gnn_tpu)
     from recbole_gnn_tpu_torch.serve import RecServer, export_artifact
-    from recbole_gnn_tpu_torch.train.checkpoint import save_checkpoint
-    from recbole_gnn_tpu_torch.utils.seed import init_seed
+    from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                       params_from_numpy)
+    from recbole_gnn_tpu_torch.train.trainer import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 U·Iᵀ
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
     # 1. the card
@@ -271,31 +501,108 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        # 3. the slice's data, model and checkpoint
+        # 3. the slice's data
         t0 = time.perf_counter()
         write_gowalla_shape(tmp, "gowalla_shape", SEED, **GOWALLA_SHAPE)
-        config = Config(model="LightGCN", dataset="gowalla_shape",
-                        config_dict={"data_path": tmp, "checkpoint_dir": tmp,
-                                     "embedding_size": EMBEDDING_SIZE,
-                                     "n_layers": N_LAYERS,
-                                     "enable_sparse": True,
-                                     "sparse_spmm_impl": "pallas",
-                                     "seed": SEED, "state": "ERROR"})
-        train_ds, _, _ = create_dataset(config).build()
-        model = get_model("LightGCN")(config, train_ds, dev)
-        params = model.init_params(init_seed(SEED))
-        ckpt = os.path.join(tmp, "LightGCN-gowalla_shape.ckpt")
-        save_checkpoint(ckpt, {"params": params, "extras": {},
-                               "epoch": np.int64(0),
-                               "config": {"model": "LightGCN",
-                                          "dataset": "gowalla_shape"}})
-        graph = model.consts["graph"]
-        log(f"data: {train_ds} -> graph n={graph.n_nodes} nnz={graph.nnz} "
-            f"e_pad={graph.n_edges_padded} ({time.perf_counter() - t0:.1f} s)")
+        log(f"data written ({time.perf_counter() - t0:.1f} s)")
 
-        # 4. the main path: export on the card, then serve
+        # 4. path 1, training, through run_recbole_gnn_tpu
+        cd = train_config(tmp)
+        torch.cuda.reset_peak_memory_stats()
+        segment_spmm.launches = segment_spmm_transpose.launches = 0
+        t0 = time.perf_counter()
+        res = run_recbole_gnn_tpu(model="LightGCN", dataset="gowalla_shape",
+                                  config_dict=cd, saved=True, verbose=False)
+        train_wall = time.perf_counter() - t0
+        train_total = segment_spmm.launches
+        train_bwd = segment_spmm_transpose.launches
+        train_fwd = train_total - train_bwd
+        peak_bytes = torch.cuda.max_memory_allocated()
+        with open(cd["metrics_log_path"]) as f:
+            events = [json.loads(line) for line in f]
+
+        config = Config(model="LightGCN", dataset="gowalla_shape",
+                        config_dict=cd)
+        (train_loader, train_ds), (valid_loader, _), _ = data_preparation(
+            config, create_dataset(config))
+        model = get_model("LightGCN")(config, train_ds, dev)
+        graph = model.consts["graph"]
+        steps = len(train_loader)
+        epochs = [e for e in events if e["event"] == "train_epoch"]
+        valids = [e for e in events if e["event"] == "valid"]
+        losses = [e["loss"] for e in epochs]
+        log(f"train: {graph.n_nodes} nodes, {graph.nnz} edges (e_pad "
+            f"{graph.n_edges_padded}); {steps} steps per epoch of "
+            f"{train_loader.batch_size} pairs; {len(epochs)} epochs in "
+            f"{train_wall:.1f} s end to end")
+        for e in epochs:
+            log(f"train epoch {e['epoch']}: loss {e['loss']:.6f}, "
+                f"{e['seconds']:.3f} s, {e['examples_per_s']:.0f} examples/s")
+        for e in valids:
+            log(f"valid epoch {e['epoch']}: {e['seconds']:.3f} s, "
+                f"recall@10 {e['recall@10']:.5f}, ndcg@10 {e['ndcg@10']:.5f}")
+        log(f"test: {res['test_result']}")
+        if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"training losses: {losses}")
+        if not losses[1] < losses[0]:
+            raise AssertionError(f"loss did not fall: {losses}")
+        for e in valids:
+            check_metrics(f"valid epoch {e['epoch']}",
+                          {k: v for k, v in e.items() if "@" in k})
+        check_metrics("test", res["test_result"])
+        if not res["test_result"]["recall@10"] > 0:
+            raise AssertionError("test recall@10 is 0")
+        n_evals = len(valids) + 1
+        want_fwd = N_LAYERS * (EPOCHS * steps + n_evals)
+        want_bwd = N_LAYERS * EPOCHS * steps
+        log(f"train launches: K1 forward {train_fwd} (expected "
+            f"{N_LAYERS} x ({EPOCHS} x {steps} steps + {n_evals} "
+            f"evaluations) = {want_fwd}), K1T backward {train_bwd} "
+            f"(expected {N_LAYERS} x {EPOCHS} x {steps} = {want_bwd})")
+        if (train_fwd, train_bwd) != (want_fwd, want_bwd):
+            raise AssertionError("training launch counts differ")
+        log(f"train peak device memory (max_memory_allocated): "
+            f"{peak_bytes} bytes ({peak_bytes / 2**30:.3f} GiB)")
+
+        ckpt = os.path.join(tmp, "LightGCN-gowalla_shape.ckpt")
+        state = load_checkpoint(ckpt)
+        trainer = Trainer(config, model)
+        it = iter(train_loader)
+        host_batches = [next(it) for _ in range(5 + TIMED_STEPS + 10)]
+        step_ms, prof = time_train_steps(trainer, model, state, host_batches,
+                                         dev)
+        log(f"train step (host clock, synchronised, {TIMED_STEPS} steps "
+            f"after 5 warm-up): median {np.median(step_ms):.3f} ms, min "
+            f"{min(step_ms):.3f}, max {max(step_ms):.3f}")
+        log("train step profile (torch.profiler, 10 steps): "
+            + (json.dumps(prof) if prof else "not measured (no device "
+               "activity recorded)"))
+        params = params_from_numpy(state["params"], dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = trainer.evaluator.evaluate(params, {}, valid_loader)
+        eval_s = time.perf_counter() - t0
+        log(f"full-sort evaluation of {len(valid_loader.eval_users)} valid "
+            f"users x {model.n_items} items (host clock): {eval_s:.3f} s")
+        # the checkpoint holds the best epoch's params: re-evaluating them
+        # gives that epoch's validation result
+        best = next(e for e in valids
+                    if e["epoch"] == int(state["best_epoch"]))
+        for k, v in result.items():
+            if not abs(v - best[k]) <= 1e-6:
+                raise AssertionError(
+                    f"re-evaluation of the checkpoint: {k} {v} differs "
+                    f"from its epoch's validation {best[k]}")
+
+        # one training step on the kernel against the plain version
+        batch = to_device(next(iter(train_loader)), dev)
+        step_err = step_vs_plain(model, params, batch)
+        log("step vs plain: " + ", ".join(
+            f"{k} {v:.6e}" for k, v in step_err.items()))
+
+        # 5. path 2, serving: export from the trained checkpoint, serve
         art = os.path.join(tmp, "lightgcn.npz")
-        segment_spmm.launches = 0
+        segment_spmm.launches = segment_spmm_transpose.launches = 0
         t0 = time.perf_counter()
         export_artifact(config, art, checkpoint_path=ckpt, device=dev)
         export_s = time.perf_counter() - t0
@@ -323,18 +630,21 @@ def main() -> int:
         http_idx = np.array([[tok2iid[t] for t in row] for row in out["items"]])
         check_recommendations(srv, http_uids, http_idx,
                               np.array(out["scores"], dtype=np.float32))
-        path_launches = segment_spmm.launches
-        log(f"export: {export_s:.2f} s, segment_spmm launches {export_launches}")
+        serve_launches = segment_spmm.launches
+        log(f"export: {export_s:.2f} s, segment_spmm launches "
+            f"{export_launches}")
         log("recommend latency (ms, median of 5, k=10): "
             + ", ".join(f"B={b}: {ms:.2f}" for b, ms in latency.items()))
         log(f"http: {len(out['items'])} users answered")
-        if export_launches != N_LAYERS or path_launches != N_LAYERS:
+        if (export_launches, serve_launches) != (N_LAYERS, N_LAYERS) or \
+                segment_spmm_transpose.launches:
             raise AssertionError(
-                f"segment_spmm launched {export_launches} times in the "
-                f"export and {path_launches} on the whole path; "
-                f"expected {N_LAYERS} (one per layer)")
+                f"serving launched K1 {export_launches} times in the export "
+                f"and {serve_launches} on the whole path, K1T "
+                f"{segment_spmm_transpose.launches} times; expected "
+                f"{N_LAYERS}, {N_LAYERS} and 0")
 
-        # the exported tables against a plain propagation on the card
+        # the exported (trained) tables against a plain propagation
         with torch.inference_mode():
             h = torch.cat([params["user_emb"], params["item_emb"]])
             layers = [h]
@@ -350,55 +660,64 @@ def main() -> int:
             f"(max |table| {np.abs(final).max():.3e})")
         np.testing.assert_allclose(exported, final, rtol=1e-4, atol=1e-7)
 
-        # 5. kernel vs plain: the slice shape, then the edge cases
+        # 6. K1 and K1T against their plain versions: the slice shape,
+        # then the edge cases
         with torch.inference_mode():
+            gen = torch.Generator(device=dev).manual_seed(SEED)
             x = torch.cat([params["user_emb"], params["item_emb"]]).contiguous()
-            max_err = check_kernel("slice", graph, x)
+            cot = torch.randn(graph.n_nodes, EMBEDDING_SIZE, device=dev,
+                              generator=gen)
+            max_err, max_err_t = check_kernels("slice", graph, x, cot)
             case_rng = np.random.default_rng(SEED + 1)
-            for name, s, d_, w, n, dim in edge_case_graphs(case_rng):
-                g = build_graph(s, d_, w, n, device=dev, with_pallas=True,
-                                with_reverse=False)
-                xc = torch.from_numpy(
-                    case_rng.normal(size=(n, dim)).astype(np.float32)).to(dev)
-                check_kernel(name, g, xc)
+            for name, s, d_, w, n_dst, n_src, dim in edge_case_graphs(case_rng):
+                g = build_graph(s, d_, w, n_dst, n_src, device=dev,
+                                with_pallas=True, with_reverse=True)
+                xc = torch.from_numpy(case_rng.normal(
+                    size=(n_src, dim)).astype(np.float32)).to(dev)
+                gc = torch.from_numpy(case_rng.normal(
+                    size=(n_dst, dim)).astype(np.float32)).to(dev)
+                check_kernels(name, g, xc, gc)
+                del g, xc, gc
 
-            # times at the slice shape
+            # 7. times at the slice shape: K1, then K1T
+            nnz, n = graph.nnz, graph.n_nodes
             kernel_ms = time_cuda_ms(lambda: segment_spmm(
                 graph.src, graph.dst, graph.weight, graph.rowptr, x))
             plain_ms = time_cuda_ms(lambda: spmm_coo(
-                graph.src, graph.dst, graph.weight, x, graph.n_nodes))
-            # the yardstick's CSR holds the real edges only, columns
-            # sorted within each row (cuSPARSE's invariants; the padding
-            # edges are weight-0 duplicates and add nothing)
-            nnz = graph.nnz
-            key = (graph.dst[:nnz].long() * graph.n_src_nodes
-                   + graph.src[:nnz].long())
-            order = torch.argsort(key)
-            warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
-            csr = torch.sparse_csr_tensor(
-                torch.clamp(graph.rowptr, max=nnz),
-                graph.src[:nnz].long()[order], graph.weight[:nnz][order],
-                size=(graph.n_nodes, graph.n_src_nodes), check_invariants=True)
+                graph.src, graph.dst, graph.weight, x, n))
+            csr = sorted_csr(graph.dst[:nnz], graph.src[:nnz],
+                             graph.weight[:nnz], n, graph.n_src_nodes)
             lib_err = float((torch.sparse.mm(csr, x) - spmm_coo(
-                graph.src, graph.dst, graph.weight, x, graph.n_nodes)
-                ).abs().max())
+                graph.src, graph.dst, graph.weight, x, n)).abs().max())
             library_ms = time_cuda_ms(lambda: torch.sparse.mm(csr, x))
+            kernel_t_ms = time_cuda_ms(lambda: segment_spmm_transpose(
+                graph.rev_src, graph.rev_dst, graph.rev_weight,
+                graph.rev_rowptr, cot))
+            plain_t_ms = time_cuda_ms(lambda: spmm_coo(
+                graph.rev_src, graph.rev_dst, graph.rev_weight, cot,
+                graph.n_src_nodes))
+            csr_t = sorted_csr(graph.src[:nnz], graph.dst[:nnz],
+                               graph.weight[:nnz], graph.n_src_nodes, n)
+            lib_err_t = float((torch.sparse.mm(csr_t, cot) - spmm_coo(
+                graph.rev_src, graph.rev_dst, graph.rev_weight, cot,
+                graph.n_src_nodes)).abs().max())
+            library_t_ms = time_cuda_ms(lambda: torch.sparse.mm(csr_t, cot))
+            del csr, csr_t
 
-            # where the kernel's time goes: one warp walks each row, so
-            # the longest row (a Zipf hub item, or the last row with the
-            # weight-0 padding tail) sets the time
+            # where K1's time goes: one warp walks each row, so the
+            # longest row (a Zipf hub item, or the padding tail) sets it
             deg = (graph.rowptr[1:] - graph.rowptr[:-1]).cpu().numpy()
-            tail = graph.n_edges_padded - graph.nnz
+            rdeg = (graph.rev_rowptr[1:] - graph.rev_rowptr[:-1]).cpu().numpy()
+            tail = graph.n_edges_padded - nnz
             real = deg.copy()
             real[-1] -= tail
-            rp_unpadded = torch.clamp(graph.rowptr, max=graph.nnz)
+            rp_unpadded = torch.clamp(graph.rowptr, max=nnz)
             unpadded_ms = time_cuda_ms(lambda: segment_spmm(
                 graph.src, graph.dst, graph.weight, rp_unpadded, x))
             u = np.random.default_rng(SEED + 2)
-            flat = build_graph(u.integers(0, graph.n_nodes, graph.nnz),
-                               u.integers(0, graph.n_nodes, graph.nnz),
-                               np.ones(graph.nnz, np.float32), graph.n_nodes,
-                               device=dev, with_reverse=False)
+            flat = build_graph(u.integers(0, n, nnz), u.integers(0, n, nnz),
+                               np.ones(nnz, np.float32), n, device=dev,
+                               with_reverse=False)
             uniform_ms = time_cuda_ms(lambda: segment_spmm(
                 flat.src, flat.dst, flat.weight, flat.rowptr, x))
             times = []
@@ -408,37 +727,57 @@ def main() -> int:
                 model.propagate(params, model.consts, {})
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
+            yard = probe_yardsticks(dev)
         log(f"slice degrees: max real {int(real.max())}, padding tail "
-            f"{tail} on row {graph.n_nodes - 1} (real degree {int(real[-1])}),"
-            f" mean {graph.nnz / graph.n_nodes:.1f}")
+            f"{tail} on row {n - 1} (real degree {int(real[-1])}); "
+            f"transpose: max {int(rdeg.max())}, row 0 holds {int(rdeg[0])} "
+            f"(the padding), mean {nnz / n:.1f}")
         log(f"segment_spmm diagnostics: without the padding tail "
             f"{unpadded_ms:.4f} ms; uniform random graph of the same "
             f"n and nnz {uniform_ms:.4f} ms (max degree "
             f"{int((flat.rowptr[1:] - flat.rowptr[:-1]).max())}); "
             f"LightGCN propagate ({N_LAYERS} layers, host clock) "
             f"{np.median(times) * 1e3:.3f} ms")
-        bound_ms, n_bytes, flops = spmm_bound_ms(graph, x.shape[1])
-        log(f"segment_spmm at the slice shape: kernel {kernel_ms:.4f} ms, "
+        e_pad = graph.n_edges_padded
+        bound_ms, n_bytes, flops = spmm_bound_ms(
+            n, graph.n_src_nodes, e_pad, n + 1, EMBEDDING_SIZE)
+        bound_t_ms, n_bytes_t, flops_t = spmm_bound_ms(
+            graph.n_src_nodes, n, e_pad, graph.n_src_nodes + 1,
+            EMBEDDING_SIZE)
+        log(f"segment_spmm (K1) at the slice shape: kernel {kernel_ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms "
             f"(max_abs_err vs plain {lib_err:.3e}), bound {bound_ms:.4f} ms "
             f"({n_bytes} bytes, {flops} flops)")
+        log(f"segment_spmm_transpose (K1T) at the slice shape: kernel "
+            f"{kernel_t_ms:.4f} ms, plain {plain_t_ms:.4f} ms, "
+            f"torch.sparse.mm {library_t_ms:.4f} ms (max_abs_err vs plain "
+            f"{lib_err_t:.3e}), bound {bound_t_ms:.4f} ms ({n_bytes_t} "
+            f"bytes, {flops_t} flops); {N_LAYERS} launches per step, "
+            f"{N_LAYERS * steps} per epoch")
+        log("TPU probe yardsticks (one PyTorch call each): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in yard.items()))
 
-    print(json.dumps({"kernels": [{
-        "name": "segment_spmm",
-        "route": "cuda",
-        "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
-        "replaces": "recbole_gnn_tpu/ops/pallas_spmm.py:227",
-        "replaces_function": "_spmm_kernel",
-        "launches": path_launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S
-        >= flops / FP32_FLOPS else "operations",
-        "library_ms": library_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": "segment_spmm", "route": "cuda",
+         "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
+         "replaces": "recbole_gnn_tpu/ops/pallas_spmm.py:227",
+         "replaces_function": "_spmm_kernel",
+         "launches": train_fwd + serve_launches,
+         "launches_by_path": {"train": train_fwd, "serve": serve_launches},
+         "max_abs_err": max_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by(n_bytes, flops), "library_ms": library_ms},
+        {"name": "segment_spmm_transpose", "route": "cuda",
+         "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
+         "replaces": "recbole_gnn_tpu/ops/spmm.py:339",
+         "replaces_function": "_spmm_core_bwd (pallas_spmm over rev_*)",
+         "launches": train_bwd,
+         "launches_by_path": {"train": train_bwd, "serve": 0},
+         "max_abs_err": max_err_t, "ms": kernel_t_ms,
+         "kernel_ms": kernel_t_ms, "plain_ms": plain_t_ms,
+         "bound_ms": bound_t_ms, "bound_by": bound_by(n_bytes_t, flops_t),
+         "library_ms": library_t_ms},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,13 @@
 //
 // Replaces recbole_gnn_tpu/ops/pallas_spmm.py::_spmm_kernel (the
 // streaming one-hot-MXU Pallas kernel) on the LightGCN propagation
-// path.  The TPU kernel materialised a (segment, D) message stream in
+// path, forward and backward: the backward of the SpMM is the same
+// kernel over the graph's reverse CSR (rows = the original sources),
+// as recbole_gnn_tpu/ops/spmm.py::_spmm_core_bwd runs the Pallas
+// kernel over rev_src/rev_dst/rev_block_ptr; the wrapper
+// segment_spmm_transpose launches it that way.  The symmetric
+// LightGCN adjacency gives the transpose the same long rows.
+// The TPU kernel materialised a (segment, D) message stream in
 // HBM, scanned it in <= 2^20-edge segments and reduced each chunk with
 // a one-hot matrix product; none of that is needed here.  This kernel
 // gathers x[src] itself, so one launch covers the whole padded edge

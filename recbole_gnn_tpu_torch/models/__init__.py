@@ -76,7 +76,7 @@ _reg("MHCN", "social.mhcn", "MHCN", _SO, "SocialDataset", _SOCIAL)
 _reg("SEPT", "social.sept", "SEPT", _SO, "SocialDataset", _SOCIAL)
 
 # -- RecBole fallback baselines -----------------------------------------
-_reg("BPR", "general.bpr", "BPR", _G, "GeneralGraphDataset", _GENERAL_PLAIN)
+_reg("BPR", "general.bpr", "BPR", _G, "GeneralGraphDataset")
 _reg("NeuMF", "general.neumf", "NeuMF", _G, "GeneralGraphDataset",
      _GENERAL_PLAIN)
 _reg("GRU4Rec", "sequential.gru4rec", "GRU4Rec", _S, "SequentialDataset",

@@ -7,7 +7,11 @@ Port of ``recbole_gnn_tpu/models/base.py`` (``BaseRecommender``,
   * graph constants live in ``self.consts`` (tensors on ``device``);
   * params and mutable non-parameter state (``extras``) are plain
     dicts of tensors passed in explicitly, so the same numpy arrays
-    feed both packages (``train/checkpoint.py::params_from_numpy``).
+    feed both packages (``train/checkpoint.py::params_from_numpy``);
+  * ``calculate_loss`` is a function of (params, consts, extras, batch,
+    rng) → (loss, aux-dict); the trainer differentiates it with
+    ``torch.autograd.grad``.  ``rng`` is a ``torch.Generator`` (the
+    counterpart of the JAX package's per-step key).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from recbole_gnn_tpu_torch.utils.enums import InputType, ModelType
 Params = dict[str, torch.Tensor]
 Consts = dict[str, Any]
 Extras = dict[str, Any]
+Batch = dict[str, torch.Tensor]
 
 
 class BaseRecommender:
@@ -37,8 +42,33 @@ class BaseRecommender:
         self.n_items = dataset.n_items
         self.consts: Consts = {}
 
+    # -- state ---------------------------------------------------------
+
     def init_params(self, gen: torch.Generator) -> Params:
         raise NotImplementedError
+
+    def init_extras(self, gen: torch.Generator) -> Extras:
+        return {}
+
+    # -- compute ---------------------------------------------------------
+
+    def calculate_loss(self, params: Params, consts: Consts, extras: Extras,
+                       batch: Batch, rng: torch.Generator | None,
+                       mode: int = 0) -> tuple[torch.Tensor, dict]:
+        """Loss of one batch.  ``mode`` selects a warm-up variant (see
+        ``loss_mode``); most models ignore it."""
+        raise NotImplementedError
+
+    def loss_mode(self, epoch: int) -> int:
+        """Loss variant for this epoch (default 0)."""
+        return 0
+
+    # -- trainer hooks (host side, between epochs) -------------------------
+
+    def epoch_start(self, epoch: int, params: Params, consts: Consts,
+                    extras: Extras, rng: torch.Generator | None) -> Extras:
+        """Per-epoch refresh of ``extras``.  Default: no-op."""
+        return extras
 
 
 class GeneralGraphRecommender(BaseRecommender):
@@ -57,3 +87,9 @@ class GeneralGraphRecommender(BaseRecommender):
                   ) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-graph forward → (user_all_emb, item_all_emb)."""
         raise NotImplementedError
+
+    def predict_pairs(self, params: Params, consts: Consts, extras: Extras,
+                      users: torch.Tensor, items: torch.Tensor
+                      ) -> torch.Tensor:
+        u, i = self.propagate(params, consts, extras)
+        return (u[users] * i[items]).sum(-1)

@@ -1,5 +1,6 @@
 """Parameter initializers (port of ``recbole_gnn_tpu/models/init.py``,
-the part the ported models use).
+the part the ported models use: ``xavier_uniform`` for LightGCN,
+``xavier_normal`` for BPR).
 
 Params are plain dicts of tensors, as in the JAX package, so the same
 numpy arrays can feed both.  Draws come from an explicit
@@ -21,4 +22,14 @@ def xavier_uniform(gen: torch.Generator, shape: tuple[int, ...], *,
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     t = torch.empty(shape, dtype=dtype, device=gen.device)
     t.uniform_(-limit, limit, generator=gen)
+    return t.to(device)
+
+
+def xavier_normal(gen: torch.Generator, shape: tuple[int, ...], *,
+                  device: torch.device | str = "cpu",
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    fan_in, fan_out = shape[0], shape[-1]
+    std = math.sqrt(2.0 / (fan_in + fan_out))
+    t = torch.empty(shape, dtype=dtype, device=gen.device)
+    t.normal_(0.0, std, generator=gen)
     return t.to(device)

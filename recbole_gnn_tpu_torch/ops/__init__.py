@@ -1,8 +1,9 @@
 """Kernel layer: graph propagation and top-k.
 
 ``segment_spmm.segment_spmm`` launches the port's hand-written CUDA
-kernel (the Pallas streaming SpMM's counterpart); the rest is plain
-PyTorch.
+kernel (the Pallas streaming SpMM's counterpart), and
+``segment_spmm_transpose`` launches it over the reverse CSR as the
+backward of ``spmm``; the rest is plain PyTorch.
 """
 
 from recbole_gnn_tpu_torch.ops.spmm import (

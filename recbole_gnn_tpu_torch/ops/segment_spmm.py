@@ -17,7 +17,13 @@ element in both packages — SGL's sentinel-row masking relies on that
 padding contract.
 
 ``segment_spmm`` launches the kernel for CUDA tensors and runs the
-plain version, :func:`spmm_coo`, for CPU tensors only.
+plain version, :func:`spmm_coo`, for CPU tensors only.  It is the raw,
+non-differentiable launcher; gradients go through
+:class:`SegmentSpmmFunction` (``ops.spmm.spmm``), whose backward is
+the transpose SpMM — the same kernel over the graph's reverse CSR
+(:func:`segment_spmm_transpose`), as the JAX package's custom VJP runs
+the same Pallas kernel over ``rev_src``/``rev_dst``/``rev_block_ptr``
+(``recbole_gnn_tpu/ops/spmm.py::_spmm_core_bwd``).
 """
 
 from __future__ import annotations
@@ -124,10 +130,6 @@ def _check_cuda_args(src, dst, weight, rowptr, x):
             f"({e}, {dst.shape[0]}, {weight.shape[0]})")
     if rowptr.shape[0] < 1:
         raise ValueError("segment_spmm: rowptr needs n_rows + 1 >= 1 entries")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "segment_spmm has no backward yet (ROADMAP K1ᵀ, the training "
-            "slice); call it under torch.no_grad()")
 
 
 def segment_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
@@ -164,6 +166,67 @@ def segment_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
 
 
 segment_spmm.launches = 0
+
+
+def segment_spmm_transpose(rev_src: torch.Tensor, rev_dst: torch.Tensor,
+                           rev_weight: torch.Tensor, rev_rowptr: torch.Tensor,
+                           g: torch.Tensor) -> torch.Tensor:
+    """The transpose SpMM, dL/dx of :func:`segment_spmm`:
+
+        gx[s] = Σ_{e: src[e]=s} w[e]·g[dst[e]]
+
+    run as :func:`segment_spmm` over the reverse CSR (edges sorted by
+    the original ``src``; ``rev_src`` holds the original ``dst``), so
+    the output has ``len(rev_rowptr) - 1`` = n_src_nodes rows.  ``g`` is
+    made contiguous first (a cotangent is often a broadcast or a
+    slice).  ``segment_spmm_transpose.launches`` counts the launches
+    made here; ``segment_spmm.launches`` counts them too."""
+    before = segment_spmm.launches
+    out = segment_spmm(rev_src, rev_dst, rev_weight, rev_rowptr,
+                       g.contiguous())
+    segment_spmm_transpose.launches += segment_spmm.launches - before
+    return out
+
+
+segment_spmm_transpose.launches = 0
+
+
+class SegmentSpmmFunction(torch.autograd.Function):
+    """Differentiable SpMM over a dst-sorted graph with a reverse CSR.
+
+    ``apply(x, weight, graph, weight_grad)``: ``graph`` carries ``src``,
+    ``dst``, ``rowptr`` and the reverse arrays ``rev_src``, ``rev_dst``,
+    ``rev_weight``, ``rev_rowptr`` (``ops.spmm.Graph``); ``weight`` is
+    its edge weight, passed apart so that autograd can see it.
+
+    Forward: :func:`segment_spmm`.  Backward: the x-cotangent is
+    :func:`segment_spmm_transpose` — the CUDA kernel for a CUDA tensor,
+    the plain ``spmm_coo`` over the same reverse arrays for a CPU one;
+    autograd never differentiates ``spmm_coo`` here.  The weight
+    cotangent is ``None`` unless ``weight_grad``; then it is
+    ``gw[e] = Σ_d x[src[e], d]·g[dst[e], d]`` in plain torch, as the
+    JAX package computes it with XLA ops (``spmm.py:352-355``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, graph, weight_grad):
+        ctx.graph = graph
+        ctx.weight_grad = bool(weight_grad)
+        if ctx.weight_grad:
+            ctx.save_for_backward(x)
+        return segment_spmm(graph.src, graph.dst, weight, graph.rowptr, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        graph = ctx.graph
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = segment_spmm_transpose(graph.rev_src, graph.rev_dst,
+                                        graph.rev_weight, graph.rev_rowptr, g)
+        if ctx.weight_grad and ctx.needs_input_grad[1]:
+            (x,) = ctx.saved_tensors
+            gw = (x.index_select(0, graph.src.long())
+                  * g.index_select(0, graph.dst.long())).sum(-1)
+        return gx, gw, None, None
 
 
 def _library() -> ctypes.CDLL:

@@ -19,6 +19,12 @@ least as exact; ``packed`` and ``bf16`` raise on a CUDA tensor.
 On CPU tensors every value runs the plain version, ``spmm_coo``, as the
 JAX package ignores ``pallas`` off the TPU.  A CUDA tensor runs the
 kernel or raises; it never takes the plain version.
+
+Gradients: ``spmm`` goes through ``SegmentSpmmFunction``, whose backward
+is the transpose SpMM over the graph's reverse CSR — the port of the
+custom VJP ``_spmm_core`` (``recbole_gnn_tpu/ops/spmm.py:315-359``).
+The dense bipartite form stays a pair of ``torch.matmul`` under
+autograd, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from recbole_gnn_tpu_torch.ops.segment_spmm import (
-    build_rowptr, pad_edges, segment_spmm, spmm_coo)
+    SegmentSpmmFunction, build_rowptr, pad_edges, segment_spmm, spmm_coo)
 
 SPMM_IMPLS = ("ell", "xla", "pallas")
 SPMM_PRECISIONS = ("packed", "f32x2", "bf16")
@@ -42,8 +48,7 @@ __all__ = ["Graph", "BipartiteDenseGraph", "build_graph",
 @dataclass
 class Graph:
     """Static COO graph, edges sorted by ``dst``, with its CSR row
-    pointer and the transposed ordering (for the backward of the
-    training slice).
+    pointer and the transposed ordering (for the backward).
 
     Attributes:
       src: (E,) int32 source node per edge.
@@ -85,6 +90,20 @@ class Graph:
     @property
     def n_edges_padded(self) -> int:
         return self.src.shape[0]
+
+    def reverse(self) -> "Graph":
+        """Transposed view (swaps the stored orderings; no host work)."""
+        if self.rev_src is None:
+            raise ValueError("graph built without reverse ordering")
+        # the transpose's own reverse list is this graph's dst-sorted
+        # edge list; edge k there is reverse edge inv[k]
+        inv = torch.argsort(self.rev_edge_id).to(torch.int32)
+        return Graph(self.rev_src, self.rev_dst, self.rev_weight,
+                     self.rev_rowptr, self.n_src_nodes, self.n_nodes,
+                     self.nnz, rev_src=self.src, rev_dst=self.dst,
+                     rev_edge_id=inv, rev_weight=self.weight,
+                     rev_rowptr=self.rowptr, impl=self.impl,
+                     precision=self.precision)
 
 
 def build_graph(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
@@ -144,14 +163,37 @@ def _check_cuda_impl(graph: Graph):
             "yet; use f32x2 (runs the exact f32 kernel)")
 
 
-def spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """SpMM over a :class:`Graph` → (graph.n_nodes, D).
+def spmm(graph: Graph, x: torch.Tensor,
+         weight_grad: bool = False) -> torch.Tensor:
+    """SpMM over a :class:`Graph` → (graph.n_nodes, D), differentiable.
 
-    CUDA: the segment SpMM kernel (``impl='pallas'``) or a raise.
-    CPU: the plain version, whatever ``impl`` says."""
-    if x.device.type == "cuda":
+    CUDA: the segment SpMM kernel (``impl='pallas'``) or a raise, forward
+    and backward.  CPU: the plain version, whatever ``impl`` says.
+    The x-gradient is the transpose SpMM over the reverse CSR.
+
+    ``weight_grad``: no model learns edge weights, so by default the
+    weight cotangent is skipped; pass True to differentiate with respect
+    to ``graph.weight``.
+
+    A graph built without the reverse ordering has no transpose to run:
+    on the CPU autograd differentiates ``spmm_coo`` (as the JAX package
+    does, ``spmm.py:374-375``); on the card a gradient raises."""
+    cuda = x.device.type == "cuda"
+    if cuda:
         _check_cuda_impl(graph)
-    return segment_spmm(graph.src, graph.dst, graph.weight, graph.rowptr, x)
+    if graph.rev_src is None:
+        if not cuda:
+            return spmm_coo(graph.src, graph.dst, graph.weight, x,
+                            graph.n_nodes)
+        if torch.is_grad_enabled() and (x.requires_grad or (
+                weight_grad and graph.weight.requires_grad)):
+            raise ValueError(
+                "spmm: this graph was built with with_reverse=False, so "
+                "its backward (the transpose SpMM over the reverse CSR) "
+                "cannot run on the card; build it with with_reverse=True")
+        return segment_spmm(graph.src, graph.dst, graph.weight,
+                            graph.rowptr, x)
+    return SegmentSpmmFunction.apply(x, graph.weight, graph, weight_grad)
 
 
 @dataclass

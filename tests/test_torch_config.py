@@ -92,7 +92,8 @@ def test_registry_tables_equal():
 
 def test_get_model_ported_and_pending():
     assert t_get_model("lightgcn").__name__ == "LightGCN"
-    for name in ("NGCF", "SRGNN", "DiffNet", "BPR"):
+    assert t_get_model("BPR").__name__ == "BPR"
+    for name in ("NGCF", "SRGNN", "DiffNet", "NeuMF"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_get_model(name)
 

@@ -298,4 +298,4 @@ print(len(names))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 17
+    assert int(r.stdout.strip()) >= 34

@@ -1,11 +1,15 @@
 """Port parity: the segment SpMM (plain version on CPU tensors) against
 the JAX package's Pallas streaming kernel in interpret mode and a
-float64 oracle, plus the port's graph-level dispatch rules.
+float64 oracle, its x- and weight-gradients (the transpose SpMM over
+the reverse CSR) against the JAX custom VJP, plus the port's
+graph-level dispatch rules.
 
 The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds
-it against the same plain version there.
+it, forward and transpose, against the same plain version there.
 """
 
+import dataclasses
+import inspect
 import re
 
 import jax
@@ -19,11 +23,16 @@ from recbole_gnn_tpu.ops.pallas_spmm import pad_edges as j_pad_edges
 from recbole_gnn_tpu.ops.pallas_spmm import pallas_spmm
 from recbole_gnn_tpu.ops.pallas_spmm import segment_layout as j_segment_layout
 from recbole_gnn_tpu.ops.spmm import build_dense_bipartite as j_build_dense
+from recbole_gnn_tpu.ops.spmm import build_graph as j_build_graph
+from recbole_gnn_tpu.ops.spmm import spmm as j_spmm
 from recbole_gnn_tpu.ops.spmm import spmm_dense_bipartite as j_spmm_dense
 from recbole_gnn_tpu_torch.ops import cuda_build, segment_spmm as seg_mod
-from recbole_gnn_tpu_torch.ops.segment_spmm import (build_rowptr, pad_edges,
+from recbole_gnn_tpu_torch.ops.segment_spmm import (SegmentSpmmFunction,
+                                                    build_rowptr, pad_edges,
                                                     segment_layout,
-                                                    segment_spmm, spmm_coo)
+                                                    segment_spmm,
+                                                    segment_spmm_transpose,
+                                                    spmm_coo)
 from recbole_gnn_tpu_torch.ops.spmm import (_check_cuda_impl, build_dense_bipartite,
                                             build_graph, spmm, spmm_any,
                                             spmm_dense_bipartite)
@@ -218,3 +227,158 @@ def test_dense_bipartite_matches_jax():
     got_b = spmm_dense_bipartite(gb, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got_b, want, rtol=2e-2, atol=2e-2)
     assert jax.default_backend() == "cpu"
+
+
+# -- gradients: the transpose SpMM (K1ᵀ) -----------------------------------
+
+def _grad_case(name):
+    """(src, dst, w, x, cot, n_dst, n_src): the forward CASES, plus a
+    rectangular bipartite graph (n_dst != n_src: the transpose swaps the
+    row counts) and an E > 2²⁰ graph."""
+    if name == "rectangular":
+        rng = np.random.default_rng(51)
+        n_dst, n_src, e, d = 300, 170, 6000, 64
+        src, dst = rng.integers(0, n_src, e), rng.integers(1, n_dst, e)
+        w = rng.normal(size=e).astype(np.float32)
+    elif name == "e_above_2p20":
+        rng = np.random.default_rng(61)
+        n_dst = n_src = 200_000        # short rows, as in the forward
+        e, d = (1 << 20) + 4099, 8     # cases: f32 sums of ~5 terms
+        src, dst = rng.integers(0, n_src, e), rng.integers(0, n_dst, e)
+        w = rng.normal(size=e).astype(np.float32)
+    else:
+        src, dst, w, x, n_dst, _ = _case(name)
+        n_src, d = n_dst, x.shape[1]
+        rng = np.random.default_rng(71)
+    x = rng.normal(size=(n_src, d)).astype(np.float32)
+    cot = rng.normal(size=(n_dst, d)).astype(np.float32)
+    return src, dst, w, x, cot, n_dst, n_src
+
+
+def _port_grads(g, x, cot, weight_grad=False):
+    """(out, x-grad, weight-grad) of sum(spmm(g, x) * cot) in the port."""
+    xt = torch.from_numpy(x).requires_grad_()
+    if weight_grad:
+        g = dataclasses.replace(g, weight=g.weight.clone().requires_grad_())
+    out = spmm(g, xt, weight_grad=weight_grad)
+    assert type(out.grad_fn).__name__ == "SegmentSpmmFunctionBackward"
+    (out * torch.from_numpy(cot)).sum().backward()
+    return out.detach().numpy(), xt.grad.numpy(), (
+        g.weight.grad.numpy() if weight_grad else None)
+
+
+GRAD_CASES = CASES + ["rectangular"]
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_x_grad_matches_jax_vjp_pallas_interpret_and_f64(name):
+    src, dst, w, x, cot, n_dst, n_src = _grad_case(name)
+    gj = j_build_graph(src, dst, w, n_dst, n_src, with_pallas=True,
+                       with_ell=False)
+    gt = build_graph(src, dst, w, n_dst, n_src, device="cpu",
+                     with_pallas=True)
+    # the reverse arrays equal the JAX Graph's element for element
+    for a in ("src", "dst", "weight", "rev_src", "rev_dst", "rev_edge_id",
+              "rev_weight"):
+        np.testing.assert_array_equal(getattr(gt, a).numpy(),
+                                      np.asarray(getattr(gj, a)), err_msg=a)
+    np.testing.assert_array_equal(
+        gt.rev_rowptr.numpy(),
+        np.searchsorted(gt.rev_dst.numpy(), np.arange(n_src + 1)))
+    before = (segment_spmm.launches, segment_spmm_transpose.launches)
+    out, gx, _ = _port_grads(gt, x, cot)
+    assert (segment_spmm.launches,
+            segment_spmm_transpose.launches) == before   # CPU: no kernel
+    assert out.shape == (n_dst, x.shape[1]) and gx.shape == x.shape
+    # the JAX custom VJP (its XLA transpose over the same reverse arrays)
+    want = np.asarray(jax.grad(
+        lambda x_: jnp.sum(j_spmm(gj, x_) * cot))(jnp.asarray(x)))
+    np.testing.assert_allclose(gx, want, rtol=1e-5, atol=1e-5)
+    # the Pallas kernel in interpret mode, called as _spmm_core_bwd does
+    kern = np.asarray(pallas_spmm(gj.rev_src, gj.rev_dst, gj.rev_weight,
+                                  jnp.asarray(cot), gj.rev_block_ptr,
+                                  interpret=True))[:n_src]
+    np.testing.assert_allclose(gx, kern, rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    np.testing.assert_allclose(gx, _oracle(dst, src, w, cot, n_src),
+                               rtol=F64_RTOL, atol=F64_ATOL)
+
+
+def test_x_grad_above_2p20_edges_matches_f64():
+    src, dst, w, x, cot, n_dst, n_src = _grad_case("e_above_2p20")
+    gt = build_graph(src, dst, w, n_dst, n_src, device="cpu",
+                     with_pallas=True)
+    assert gt.n_edges_padded > 1 << 20
+    _, gx, _ = _port_grads(gt, x, cot)
+    np.testing.assert_allclose(gx, _oracle(dst, src, w, cot, n_src),
+                               rtol=F64_RTOL, atol=F64_ATOL)
+
+
+@pytest.mark.parametrize("name", ["interpret", "rectangular"])
+def test_weight_grad_matches_jax(name):
+    src, dst, w, x, cot, n_dst, n_src = _grad_case(name)
+    gj = j_build_graph(src, dst, w, n_dst, n_src, with_pallas=True,
+                       with_ell=False)
+    gt = build_graph(src, dst, w, n_dst, n_src, device="cpu",
+                     with_pallas=True)
+    _, gx, gw = _port_grads(gt, x, cot, weight_grad=True)
+    want = np.asarray(jax.grad(lambda w_: jnp.sum(
+        j_spmm(gj.with_weight(w_), jnp.asarray(x), weight_grad=True)
+        * cot))(gj.weight))
+    assert gw.shape == (gt.n_edges_padded,)
+    np.testing.assert_allclose(gw, want, rtol=1e-5, atol=1e-5)
+    # default weight_grad=False: no weight cotangent at all
+    wt = gt.weight.clone().requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    (spmm(dataclasses.replace(gt, weight=wt), xt) * torch.from_numpy(cot)
+     ).sum().backward()
+    assert wt.grad is None and xt.grad is not None
+
+
+def test_reverse_matches_jax_and_transposes():
+    src, dst, w, x, cot, n_dst, n_src = _grad_case("rectangular")
+    gj = j_build_graph(src, dst, w, n_dst, n_src, with_pallas=True,
+                       with_ell=False).reverse()
+    gt = build_graph(src, dst, w, n_dst, n_src, device="cpu",
+                     with_pallas=True).reverse()
+    assert (gt.n_nodes, gt.n_src_nodes) == (n_src, n_dst)
+    for a in ("src", "dst", "weight", "rev_src", "rev_dst", "rev_edge_id",
+              "rev_weight"):
+        np.testing.assert_array_equal(getattr(gt, a).numpy(),
+                                      np.asarray(getattr(gj, a)), err_msg=a)
+    # forward of the transpose = the x-gradient of the original
+    got = spmm(gt, torch.from_numpy(cot)).numpy()
+    np.testing.assert_allclose(got, _oracle(dst, src, w, cot, n_src),
+                               rtol=F64_RTOL, atol=F64_ATOL)
+    np.testing.assert_array_equal(gt.reverse().rowptr.numpy(),
+                                  gt.rev_rowptr.numpy())
+    with pytest.raises(ValueError, match="without reverse"):
+        build_graph(src, dst, w, n_dst, n_src, device="cpu",
+                    with_reverse=False).reverse()
+
+
+def test_graph_without_reverse_differentiates_plain_on_cpu():
+    src, dst, w, x, cot, n_dst, n_src = _grad_case("rectangular")
+    g = build_graph(src, dst, w, n_dst, n_src, device="cpu",
+                    with_reverse=False)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = spmm(g, xt)
+    assert type(out.grad_fn).__name__ != "SegmentSpmmFunctionBackward"
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(),
+                               _oracle(dst, src, w, cot, n_src),
+                               rtol=F64_RTOL, atol=F64_ATOL)
+
+
+def test_transpose_has_no_fallback_for_cuda():
+    """The backward reaches the plain version only through
+    segment_spmm's CPU branch; a graph without the reverse ordering
+    raises on the card instead of differentiating spmm_coo there."""
+    bwd = inspect.getsource(SegmentSpmmFunction.backward)
+    tr = inspect.getsource(segment_spmm_transpose)
+    for src in (bwd, tr):
+        assert "try:" not in src and "spmm_coo(" not in src
+    assert "segment_spmm_transpose(" in bwd and "rev_rowptr" in bwd
+    sp = inspect.getsource(spmm)
+    assert sp.index("if not cuda:") < sp.index("spmm_coo(")
+    assert sp.index("raise ValueError(") < sp.index("segment_spmm(")
+    assert "with_reverse=True" in sp and "try:" not in sp
