@@ -7,6 +7,10 @@ hash of the source and the flags, so an edited source is rebuilt at
 its next use and an unchanged one is built once.  Nothing is built
 when a module is imported: the first launch builds, or a caller asks
 ahead with :func:`build`, which starts one ``nvcc`` per source at once.
+
+The kernel wrappers share the launch contract's checks here:
+:func:`check_tensors` (device, dtype, rank, contiguity) and
+:func:`vec_width` (the widest vector load a row layout allows).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -91,3 +97,30 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _loaded[name] = lib
         return lib
+
+
+def check_tensors(who: str, device: torch.device, specs) -> None:
+    """Raise unless each ``(name, tensor, dtype, ndim)`` of ``specs`` lies
+    on ``device`` with that dtype and rank, contiguous — what a kernel
+    reading raw pointers needs."""
+    for name, t, dtype, ndim in specs:
+        if t.device != device:
+            raise ValueError(f"{who}: {name} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"{who}: {name} must be {ndim}-D, got shape "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+
+
+def vec_width(x: torch.Tensor) -> int:
+    """Widest vector load (floats) that every row of the 2-D ``x``
+    allows: 4 or 2 where the width and the address are aligned, else 1."""
+    d, ptr = x.shape[1], x.data_ptr()
+    for vec in (4, 2):
+        if d % vec == 0 and ptr % (4 * vec) == 0:
+            return vec
+    return 1

@@ -98,31 +98,11 @@ def spmm_coo(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
     return out
 
 
-def _vec_width(x: torch.Tensor) -> int:
-    """Widest vector load (floats) that every row of x allows."""
-    d, ptr = x.shape[1], x.data_ptr()
-    for vec in (4, 2):
-        if d % vec == 0 and ptr % (4 * vec) == 0:
-            return vec
-    return 1
-
-
 def _check_cuda_args(src, dst, weight, rowptr, x):
-    dev = x.device
-    for name, t, dtype, ndim in (("src", src, torch.int32, 1),
-                                 ("dst", dst, torch.int32, 1),
-                                 ("weight", weight, torch.float32, 1),
-                                 ("rowptr", rowptr, torch.int64, 1),
-                                 ("x", x, torch.float32, 2)):
-        if t.device != dev:
-            raise ValueError(f"segment_spmm: {name} is on {t.device}, x on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"segment_spmm: {name} must be {dtype}, got {t.dtype}")
-        if t.dim() != ndim:
-            raise ValueError(f"segment_spmm: {name} must be {ndim}-D, "
-                             f"got shape {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"segment_spmm: {name} must be contiguous")
+    cuda_build.check_tensors("segment_spmm", x.device, (
+        ("src", src, torch.int32, 1), ("dst", dst, torch.int32, 1),
+        ("weight", weight, torch.float32, 1),
+        ("rowptr", rowptr, torch.int64, 1), ("x", x, torch.float32, 2)))
     e = src.shape[0]
     if dst.shape[0] != e or weight.shape[0] != e:
         raise ValueError(
@@ -157,8 +137,8 @@ def segment_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.segment_spmm_f32(
             x.data_ptr(), src.data_ptr(), weight.data_ptr(),
-            rowptr.data_ptr(), out.data_ptr(), n_rows, d, _vec_width(x),
-            stream)
+            rowptr.data_ptr(), out.data_ptr(), n_rows, d,
+            cuda_build.vec_width(x), stream)
     if rc != 0:
         raise RuntimeError(f"segment_spmm launch failed: CUDA error {rc}")
     segment_spmm.launches += 1
@@ -211,22 +191,38 @@ class SegmentSpmmFunction(torch.autograd.Function):
     def forward(ctx, x, weight, graph, weight_grad):
         ctx.graph = graph
         ctx.weight_grad = bool(weight_grad)
-        if ctx.weight_grad:
-            ctx.save_for_backward(x)
+        ctx.save_for_backward(x if ctx.weight_grad else None, weight)
         return segment_spmm(graph.src, graph.dst, weight, graph.rowptr, x)
 
     @staticmethod
     def backward(ctx, g):
         graph = ctx.graph
+        x, weight = ctx.saved_tensors
         gx = gw = None
         if ctx.needs_input_grad[0]:
             gx = segment_spmm_transpose(graph.rev_src, graph.rev_dst,
-                                        graph.rev_weight, graph.rev_rowptr, g)
+                                        reverse_weight(graph, weight),
+                                        graph.rev_rowptr, g)
         if ctx.weight_grad and ctx.needs_input_grad[1]:
-            (x,) = ctx.saved_tensors
-            gw = (x.index_select(0, graph.src.long())
-                  * g.index_select(0, graph.dst.long())).sum(-1)
+            gw = weight_cotangent(graph, x, g)
         return gx, gw, None, None
+
+
+def reverse_weight(graph, weight: torch.Tensor) -> torch.Tensor:
+    """The edge weights in the transposed ordering: the graph's
+    ``rev_weight``, or ``weight[rev_edge_id]`` gathered now when it has
+    none (a re-weighted graph, ``Graph.with_weight``), as the JAX
+    package's ``_spmm_core_bwd`` does (``spmm.py:341-347``)."""
+    if graph.rev_weight is not None:
+        return graph.rev_weight
+    return weight.index_select(0, graph.rev_edge_id.long())
+
+
+def weight_cotangent(graph, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dL/dw[e] = x[src[e]]·g[dst[e]], in plain torch as the JAX package
+    computes it with XLA ops (``spmm.py:352-355``)."""
+    return (x.index_select(0, graph.src.long())
+            * g.index_select(0, graph.dst.long())).sum(-1)
 
 
 def _library() -> ctypes.CDLL:

@@ -10,18 +10,27 @@ Implementation switch (config ``sparse_spmm_impl``, carried on the
 
   * ``pallas``: the segment SpMM kernel (``ops/segment_spmm.py``,
     ``csrc/segment_spmm.cu``), the port of the Pallas streaming kernel.
-  * ``ell`` / ``xla``: bucketed-ELL and the XLA segment-sum are not
-    ported yet (ROADMAP K2, K3); on a CUDA tensor they raise.
+  * ``xla``: the JAX package's gather + sorted segment-sum
+    (``spmm_coo`` / ``_spmm_coo_chunked``), here :func:`xla_spmm`: the
+    row gather kernel (``ops/gather.py``, D2) makes the messages and the
+    block segment sum kernel (``ops/segment_sum.py``, D1) reduces them,
+    over edge chunks above ``MSGS_BYTES_BUDGET``.
+  * ``ell``: bucketed-ELL is not ported yet (ROADMAP K2); on a CUDA
+    tensor it raises.
 
-``pallas_spmm_precision``: ``f32x2`` runs the f32 kernel, which is at
-least as exact; ``packed`` and ``bf16`` raise on a CUDA tensor.
+``pallas_spmm_precision``: for ``pallas``, ``f32x2`` runs the f32
+kernel, which is at least as exact; ``packed`` and ``bf16`` raise on a
+CUDA tensor.  The JAX package reads it only on the Pallas path, so the
+other implementations ignore it.
 
-On CPU tensors every value runs the plain version, ``spmm_coo``, as the
-JAX package ignores ``pallas`` off the TPU.  A CUDA tensor runs the
-kernel or raises; it never takes the plain version.
+On CPU tensors an ``xla`` graph runs the same composition through the
+plain versions of D2 and D1; every other value runs the plain version
+``spmm_coo``, as the JAX package ignores ``pallas`` off the TPU.  A
+CUDA tensor runs the kernels or raises; it never takes a plain version.
 
-Gradients: ``spmm`` goes through ``SegmentSpmmFunction``, whose backward
-is the transpose SpMM over the graph's reverse CSR — the port of the
+Gradients: ``spmm`` goes through ``SegmentSpmmFunction`` (``pallas``)
+or ``CooSpmmFunction`` (``xla``), whose backward is the transpose SpMM
+over the graph's reverse CSR, run by the same kernels — the port of the
 custom VJP ``_spmm_core`` (``recbole_gnn_tpu/ops/spmm.py:315-359``).
 The dense bipartite form stays a pair of ``torch.matmul`` under
 autograd, as the JAX package leaves it to XLA.
@@ -29,20 +38,25 @@ autograd, as the JAX package leaves it to XLA.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
+from recbole_gnn_tpu_torch.ops import segment_spmm as _seg
+from recbole_gnn_tpu_torch.ops.gather import row_gather
 from recbole_gnn_tpu_torch.ops.segment_spmm import (
-    SegmentSpmmFunction, build_rowptr, pad_edges, segment_spmm, spmm_coo)
+    SegmentSpmmFunction, build_rowptr, pad_edges, reverse_weight,
+    segment_spmm, spmm_coo, weight_cotangent)
+from recbole_gnn_tpu_torch.ops.segment_sum import block_segment_sum
 
 SPMM_IMPLS = ("ell", "xla", "pallas")
 SPMM_PRECISIONS = ("packed", "f32x2", "bf16")
 
-__all__ = ["Graph", "BipartiteDenseGraph", "build_graph",
+__all__ = ["Graph", "BipartiteDenseGraph", "CooSpmmFunction", "build_graph",
            "build_dense_bipartite", "spmm", "spmm_any", "spmm_coo",
-           "spmm_dense_bipartite", "SPMM_IMPLS", "SPMM_PRECISIONS"]
+           "spmm_dense_bipartite", "xla_spmm", "SPMM_IMPLS",
+           "SPMM_PRECISIONS"]
 
 
 @dataclass
@@ -60,6 +74,8 @@ class Graph:
         transposed edge list (sorted by the new dst = original src),
         the original index of each transposed edge, its weight and row
         pointer; None when built without the reverse ordering.
+        ``rev_weight`` is also None after ``with_weight`` without one:
+        the backward then gathers ``weight[rev_edge_id]`` per call.
       n_nodes: number of destination nodes (output rows).
       n_src_nodes: number of source nodes (input rows).
       nnz: real edges (excluding the weight-0 padding).
@@ -98,12 +114,25 @@ class Graph:
         # the transpose's own reverse list is this graph's dst-sorted
         # edge list; edge k there is reverse edge inv[k]
         inv = torch.argsort(self.rev_edge_id).to(torch.int32)
-        return Graph(self.rev_src, self.rev_dst, self.rev_weight,
+        return Graph(self.rev_src, self.rev_dst,
+                     reverse_weight(self, self.weight),
                      self.rev_rowptr, self.n_src_nodes, self.n_nodes,
                      self.nnz, rev_src=self.src, rev_dst=self.dst,
                      rev_edge_id=inv, rev_weight=self.weight,
                      rev_rowptr=self.rowptr, impl=self.impl,
                      precision=self.precision)
+
+    def with_weight(self, weight: torch.Tensor,
+                    rev_weight: torch.Tensor | None = None) -> "Graph":
+        """New graph with re-weighted edges (dropout / augmentation), as
+        the JAX package's ``Graph.with_weight``.  Pass ``rev_weight``
+        (= ``weight[rev_edge_id]``) if it is cheap to have (once per
+        epoch); otherwise the backward gathers it per call.  The JAX
+        package clears the baked ELL layouts here, so a re-weighted
+        ``ell`` graph runs the segment-sum path: its impl becomes
+        ``xla``."""
+        return replace(self, weight=weight, rev_weight=rev_weight,
+                       impl="xla" if self.impl == "ell" else self.impl)
 
 
 def build_graph(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
@@ -152,24 +181,86 @@ def build_graph(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
 
 
 def _check_cuda_impl(graph: Graph):
-    if graph.impl in ("ell", "xla"):
-        row = {"ell": "K2", "xla": "K3"}[graph.impl]
+    if graph.impl == "ell":
         raise NotImplementedError(
-            f"sparse_spmm_impl={graph.impl!r} has no CUDA kernel yet "
-            f"(ROADMAP {row}); use sparse_spmm_impl=pallas on the card")
-    if graph.precision != "f32x2":
+            "sparse_spmm_impl='ell' has no CUDA kernel yet (ROADMAP K2); "
+            "use sparse_spmm_impl=pallas or xla on the card")
+    if graph.impl == "pallas" and graph.precision != "f32x2":
         raise NotImplementedError(
             f"pallas_spmm_precision={graph.precision!r} has no CUDA kernel "
             "yet; use f32x2 (runs the exact f32 kernel)")
+
+
+def xla_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
+             rowptr: torch.Tensor, x: torch.Tensor,
+             chunk: int | None = None) -> torch.Tensor:
+    """out[r] = Σ_{e ∈ [rowptr[r], rowptr[r+1])} weight[e]·x[src[e]] as
+    ``sparse_spmm_impl: xla`` computes it: the messages ``x[src]·w``
+    by :func:`row_gather`, then their sorted sum by
+    :func:`block_segment_sum` (f32 mode) into ``len(rowptr) - 1`` rows.
+
+    Above ``MSGS_BYTES_BUDGET`` of messages, or with ``chunk``, it runs
+    over edge chunks of ``chunk`` edges as the JAX package's
+    ``_spmm_coo_chunked`` does, each chunk's sum added into one output
+    through the chunk's clamped row pointer ``rowptr.clamp(s, s+c) - s``
+    (the same sum as JAX's weight-0 padding onto the last node)."""
+    e, d = src.shape[0], x.shape[1]
+    if chunk is None and e * d * 4 > _seg.MSGS_BYTES_BUDGET:
+        chunk = _seg.MSGS_BYTES_BUDGET // (2 * d * 4)
+    chunk = max(1, e if chunk is None else chunk)
+    out = None
+    for s in range(0, max(e, 1), chunk):
+        c = min(chunk, e - s)
+        msgs = row_gather(x, src[s:s + c])
+        # in place: the (c, D) message array is the peak, and a product
+        # into a new tensor would double it
+        msgs.mul_(weight[s:s + c, None])
+        rp = rowptr if c == e else rowptr.clamp(s, s + c) - s
+        out = block_segment_sum(msgs, dst[s:s + c], rp, "f32", out=out)
+    return out
+
+
+class CooSpmmFunction(torch.autograd.Function):
+    """Differentiable ``xla`` SpMM over a dst-sorted graph with a
+    reverse CSR — the port of ``_spmm_core`` with neither ELL nor
+    Pallas selected (``recbole_gnn_tpu/ops/spmm.py:345-355``).
+
+    ``apply(x, weight, graph, weight_grad)``: forward :func:`xla_spmm`
+    over ``src``/``dst``/``rowptr``; the x-cotangent is the same
+    composition over ``rev_src``/``rev_dst``/``rev_rowptr`` with
+    ``rev_weight`` (gathered as ``weight[rev_edge_id]`` when the graph
+    has none); the weight cotangent as in ``SegmentSpmmFunction``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, graph, weight_grad):
+        ctx.graph = graph
+        ctx.weight_grad = bool(weight_grad)
+        ctx.save_for_backward(x if ctx.weight_grad else None, weight)
+        return xla_spmm(graph.src, graph.dst, weight, graph.rowptr, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        graph = ctx.graph
+        x, weight = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = xla_spmm(graph.rev_src, graph.rev_dst,
+                          reverse_weight(graph, weight), graph.rev_rowptr,
+                          g.contiguous())
+        if ctx.weight_grad and ctx.needs_input_grad[1]:
+            gw = weight_cotangent(graph, x, g)
+        return gx, gw, None, None
 
 
 def spmm(graph: Graph, x: torch.Tensor,
          weight_grad: bool = False) -> torch.Tensor:
     """SpMM over a :class:`Graph` → (graph.n_nodes, D), differentiable.
 
-    CUDA: the segment SpMM kernel (``impl='pallas'``) or a raise, forward
-    and backward.  CPU: the plain version, whatever ``impl`` says.
-    The x-gradient is the transpose SpMM over the reverse CSR.
+    CUDA: the kernels of ``graph.impl`` (``pallas``: the segment SpMM;
+    ``xla``: row gather + block segment sum) or a raise, forward and
+    backward.  CPU: ``xla`` runs its composition on the plain versions
+    of its kernels, every other impl the plain ``spmm_coo``.  The
+    x-gradient is the transpose SpMM over the reverse CSR.
 
     ``weight_grad``: no model learns edge weights, so by default the
     weight cotangent is skipped; pass True to differentiate with respect
@@ -191,8 +282,13 @@ def spmm(graph: Graph, x: torch.Tensor,
                 "spmm: this graph was built with with_reverse=False, so "
                 "its backward (the transpose SpMM over the reverse CSR) "
                 "cannot run on the card; build it with with_reverse=True")
+        if graph.impl == "xla":
+            return xla_spmm(graph.src, graph.dst, graph.weight,
+                            graph.rowptr, x)
         return segment_spmm(graph.src, graph.dst, graph.weight,
                             graph.rowptr, x)
+    if graph.impl == "xla":
+        return CooSpmmFunction.apply(x, graph.weight, graph, weight_grad)
     return SegmentSpmmFunction.apply(x, graph.weight, graph, weight_grad)
 
 

@@ -148,17 +148,28 @@ def test_graph_spmm_cpu_runs_plain_for_every_impl(impl, precision):
 
 
 @pytest.mark.parametrize("impl,precision,match", [
-    ("ell", "f32x2", "K2"), ("xla", "f32x2", "K3"),
+    ("ell", "f32x2", "K2"), ("ell", "bf16", "K2"),
     ("pallas", "packed", "f32x2"), ("pallas", "bf16", "f32x2")])
 def test_cuda_dispatch_refuses_unported_impls(impl, precision, match):
-    """On a CUDA tensor only impl=pallas/precision=f32x2 runs (the
-    kernel); the rest raise instead of falling back."""
+    """On a CUDA tensor impl=pallas runs (the kernel) only with
+    precision=f32x2, and impl=ell (K2, not ported) raises, instead of
+    falling back."""
     g = build_graph(np.array([0]), np.array([1]), np.array([1.0]), 2,
                     device="cpu", impl=impl, precision=precision)
     with pytest.raises(NotImplementedError, match=match):
         _check_cuda_impl(g)
     _check_cuda_impl(build_graph(np.array([0]), np.array([1]),
                                  np.array([1.0]), 2, device="cpu"))
+
+
+@pytest.mark.parametrize("precision", ["packed", "f32x2", "bf16"])
+def test_cuda_dispatch_accepts_xla_under_every_precision(precision):
+    """impl=xla runs its kernels (D2 + D1) on the card whatever
+    pallas_spmm_precision says: the JAX package reads the precision
+    only on the Pallas path."""
+    g = build_graph(np.array([0]), np.array([1]), np.array([1.0]), 2,
+                    device="cpu", impl="xla", precision=precision)
+    _check_cuda_impl(g)
 
 
 def test_wrapper_rejects_devices_without_kernel():

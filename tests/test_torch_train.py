@@ -1,9 +1,11 @@
 """Port parity: the training slice — losses and their gradients, the
 optimizers, the train loader, and the trainer from a JAX-written
-checkpoint to epoch 3 on the dense and the sparse (pallas) graph.
+checkpoint to epoch 3 on the dense and the sparse graph (``pallas``
+and ``xla``), in process and through the port's CLI.
 
 The port runs on the CPU here (``use_gpu=False``): a sparse graph's
-backward is the plain transpose SpMM over the reverse CSR.  Tolerances:
+backward is the plain transpose SpMM over the reverse CSR (``xla``: the
+plain versions of its row gather and block segment sum).  Tolerances:
 losses and gradients rtol 1e-5 / atol 1e-6 (the same f32 sums in
 another order); optimizer states rtol 1e-6 (atol: ``OPT_ATOL``); trained params rtol 1e-4
 after ~20 Adam steps; test metrics abs 1e-3 (a rank can flip on a
@@ -13,6 +15,7 @@ near-tie when params differ in the 6th digit).
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -45,6 +48,8 @@ j_pallas_mod = importlib.import_module("recbole_gnn_tpu.ops.pallas_spmm")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPARSE = {"enable_sparse": True, "sparse_spmm_impl": "pallas"}
+XLA = {"enable_sparse": True, "sparse_spmm_impl": "xla"}
+GRAPHS = {"dense": {}, "sparse": SPARSE, "xla": XLA}
 
 
 def _cfg(**over):
@@ -185,13 +190,13 @@ def _losses(path):
                 if r["event"] == "train_epoch"]
 
 
-@pytest.fixture(scope="module", params=["dense", "sparse"])
+@pytest.fixture(scope="module", params=list(GRAPHS))
 def resumed(request, tmp_path_factory):
     """A JAX trainer runs epoch 0 and saves; both packages resume from
-    that checkpoint and train to epoch 3."""
+    that checkpoint and train to epoch 3, the port also through its CLI
+    (``runs["cli"]``: the CLI's per-epoch losses)."""
     tmp = tmp_path_factory.mktemp(f"resume_{request.param}")
-    cd = _cfg(checkpoint_dir=str(tmp),
-              **(SPARSE if request.param == "sparse" else {}))
+    cd = _cfg(checkpoint_dir=str(tmp), **GRAPHS[request.param])
     runs = {}
     with pytest.MonkeyPatch.context() as mp:
         _jax_globals(mp)
@@ -208,6 +213,16 @@ def resumed(request, tmp_path_factory):
             tr.fit(tl, vl, saved=False, verbose=False, resume=True)
             runs[name] = (tr, tr.evaluate(te, load_best_model=False),
                           _losses(tmp / f"{name}.jsonl"))
+    cli_dir = tmp / "cli"
+    cli_dir.mkdir()
+    shutil.copy(tmp / "LightGCN-test.ckpt", cli_dir)
+    flags = {k: v for k, v in cd.items()
+             if k not in ("dataset", "data_path", "checkpoint_dir", "epochs")}
+    r = _cli("--resume", "--epochs=3", f"--checkpoint_dir={cli_dir}",
+             f"--metrics_log_path={cli_dir / 'cli.jsonl'}",
+             *(f"--{k}={v}" for k, v in flags.items()))
+    assert r.returncode == 0, r.stderr
+    runs["cli"] = _losses(cli_dir / "cli.jsonl")
     assert int(ckpt["epoch"]) == 0
     return runs, ckpt
 
@@ -218,6 +233,13 @@ def test_resumed_losses_match_jax(resumed):
     assert len(jl) == len(tl) == 2              # epochs 1 and 2
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
     assert tl[1] < tl[0]
+
+
+def test_resumed_cli_losses_match_jax(resumed):
+    runs, _ = resumed
+    jl, cl = runs["jax"][2], runs["cli"]
+    assert len(cl) == 2
+    np.testing.assert_allclose(cl, jl, rtol=1e-4)
 
 
 def test_resumed_params_match_jax(resumed):
