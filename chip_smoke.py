@@ -27,7 +27,13 @@ Each path runs with every launch counter set to 0 just before it and
 read just after, and the counts are checked exactly.  Then it holds one
 training step of each impl on the kernels against the same step on the
 plain versions, every kernel against its plain version at the slice
-shape and at edge-case shapes (D1 in all four modes), and times them.
+shape and at edge-case shapes (D1 in all four modes; K1 and K1ᵀ also
+against their share schedule in plain torch, ``segment_spmm_shares_plain``,
+at several share sizes, on a giant row and on rows and empty rows that
+sit on share boundaries), reruns K1 and K1ᵀ at the slice shape for bit
+equality, and times them (K1 and K1ᵀ at each of ``SHARE_TIMED``, with
+the device time of their two kernels and the rate of their row
+gathers).
 
 Prints the card's name and power limit, the build, check and timing
 lines, then a ``{"kernels": [...]}`` line and, last,
@@ -41,6 +47,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -70,6 +77,13 @@ CHUNK = 100_003            # the forced xla chunk: boundaries inside rows
 # a multiple of the unit roundoff times the sum of absolute terms (empty
 # rows must match exactly: both write 0).  D2 must match bit for bit.
 TOL_REL_ABSSUM = 1e-4
+
+# K1's share sizes: checked on the small edge cases (None: the module's
+# SHARE_EDGES, through the public wrapper), checked and timed at the
+# slice shape (ops.segment_spmm.SHARE_EDGES is the fastest of SHARE_TIMED)
+SHARE_CHECKED = (1, None)
+SHARE_TIMED = (128, 256, 512)
+SMALL_CASE_EDGES = 1_000_000
 
 # one training step, kernel against plain: the same f32 sums in another
 # order through 3 layers forward and 3 back, plus the atomics of
@@ -162,6 +176,27 @@ def time_cuda_ms(fn) -> float:
     return time_ms(fn, torch.device("cuda"))
 
 
+def device_us_by_kernel(fn, reps: int = 20) -> dict:
+    """Device µs per call of ``fn`` by kernel name (``torch.profiler``,
+    ``reps`` calls after one warm-up, the L2 left warm); empty where the
+    profiler records no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and evt.self_device_time_total):
+            m = re.search(r"(\w+)(?:<[^>]*>)?\(", evt.key)
+            out[m.group(1) if m else evt.key[:40]] = \
+                evt.self_device_time_total / reps
+    return out
+
+
 def spmm_bytes(n_out: int, n_in: int, e: int, n_ptr: int,
                d: int) -> tuple[int, int]:
     """(bytes, flops) of one SpMM: x read once, out written once, the
@@ -211,37 +246,54 @@ def hold(kind: str, name: str, got: torch.Tensor, want: torch.Tensor,
     return max_err
 
 
-def check_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor
-                  ) -> tuple[float, float]:
+def check_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor,
+                  share_sizes=(None,)) -> tuple[float, float]:
     """K1 (forward, on x) and K1ᵀ (transpose, on the cotangent g) against
-    their plain versions on the same inputs.  K1ᵀ is held against the
-    plain version over the reverse arrays and, to check those arrays
-    too, over the forward arrays with src and dst swapped.  Returns
-    (max |err| forward, max |err| transpose)."""
+    their plain versions on the same inputs: ``spmm_coo`` and the share
+    schedule's ``segment_spmm_shares_plain``.  K1ᵀ is held against
+    ``spmm_coo`` over the reverse arrays and, to check those arrays too,
+    over the forward arrays with src and dst swapped.  K1 runs once per
+    share size of ``share_sizes``: the public wrapper at the module's
+    SHARE_EDGES (or None), the uncounted ``_segment_spmm_cuda`` at any
+    other.  Returns (max |err| forward, max |err| transpose)."""
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
-        segment_spmm, segment_spmm_transpose, spmm_coo)
+        SHARE_EDGES, _segment_spmm_cuda, segment_spmm,
+        segment_spmm_shares_plain, segment_spmm_transpose, share_schedule,
+        spmm_coo)
     errs = []
     fwd = (graph.src, graph.dst, graph.weight)
     rev = (graph.rev_src, graph.rev_dst, graph.rev_weight)
     swapped = (graph.dst, graph.src, graph.weight)
-    for kind, got, plains, inp, n_out in (
-            ("K1", segment_spmm(graph.src, graph.dst, graph.weight,
-                                graph.rowptr, x), (fwd,), x, graph.n_nodes),
-            ("K1T", segment_spmm_transpose(graph.rev_src, graph.rev_dst,
-                                           graph.rev_weight,
-                                           graph.rev_rowptr, g),
-             (rev, swapped), g, graph.n_src_nodes)):
-        s, d, w = plains[0]
+    k1_args = (graph.src, graph.dst, graph.weight, graph.rowptr, x)
+    runs = [("K1", t or SHARE_EDGES,
+             segment_spmm(*k1_args) if t in (None, SHARE_EDGES)
+             else _segment_spmm_cuda(*k1_args, t),
+             fwd, graph.rowptr, (fwd,), x, graph.n_nodes)
+            for t in share_sizes]
+    runs.append(("K1T", SHARE_EDGES,
+                 segment_spmm_transpose(graph.rev_src, graph.rev_dst,
+                                        graph.rev_weight, graph.rev_rowptr,
+                                        g),
+                 rev, graph.rev_rowptr, (rev, swapped), g,
+                 graph.n_src_nodes))
+    for kind, t, got, arrays, rp, plains, inp, n_out in runs:
+        s, d, w = arrays
         abssum = spmm_coo(s, d, w.abs(), inp.abs(), n_out)
         max_err = max(hold(kind, name, got, spmm_coo(s, d, w, inp, n_out),
                            abssum) for s, d, w in plains)
-        rp = graph.rowptr if kind == "K1" else graph.rev_rowptr
-        log(f"kernel check {kind} {name}: rows={n_out} "
+        max_err = max(max_err, hold(
+            f"{kind} (share schedule T={t})", name, got,
+            segment_spmm_shares_plain(s, w, rp, inp, t), abssum))
+        sch = share_schedule(rp, s.numel(), t)
+        log(f"kernel check {kind} {name} T={t}: rows={n_out} "
             f"e_pad={graph.src.numel()} d={inp.shape[1]} "
             f"max_abs_err={max_err:.3e} "
-            f"empty_rows={int((rp[1:] == rp[:-1]).sum())}")
+            f"empty_rows={int((rp[1:] == rp[:-1]).sum())} "
+            f"shares={sch.n_shares} split_rows={int(sch.split.sum())} "
+            f"max_shares_per_row="
+            f"{int((sch.last_share - sch.first_share).max()) + 1}")
         errs.append(max_err)
-    return errs[0], errs[1]
+    return max(errs[:-1]), errs[-1]
 
 
 def check_xla_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor,
@@ -325,8 +377,31 @@ def edge_case_graphs(rng: np.random.Generator):
     n_dst, n_src, e = 30_000, 70_000, 1_500_000     # rectangular, Zipf src
     cases.append(("rectangular", (rng.zipf(1.3, e) - 1) % n_src,
                   rng.integers(1, n_dst, e), n_dst, n_src, 64))
+    n, e = 50_000, 2_000_000                        # one row, 60 % of edges
+    giant = rng.integers(0, n, e)
+    giant[:e * 3 // 5] = n // 3
+    cases.append(("giant_row", rng.integers(0, n, e), giant, n, n, 64))
+    # every degree a multiple of 64, a fifth of the rows empty: rows end
+    # exactly on share boundaries and empty rows sit on them
+    n = 6000
+    deg = 64 * rng.choice([0, 1, 2, 4, 8], n, p=[0.2, 0.3, 0.2, 0.2, 0.1])
+    on_bounds = np.repeat(np.arange(n), deg)
+    cases.append(("share_boundaries", rng.integers(0, n, len(on_bounds)),
+                  on_bounds, n, n, 64))
+    e = 30_000                                      # one destination row
+    cases.append(("single_row", rng.integers(0, 100, e), np.zeros(e, int),
+                  1, 100, 64))
     return [(nm, s, d_, rng.normal(size=len(s)).astype(np.float32), nd, ns,
              dim) for nm, s, d_, nd, ns, dim in cases]
+
+
+def boundary_rows(rowptr: torch.Tensor, t: int) -> tuple[int, int]:
+    """(non-empty rows that end on a multiple of t, empty rows that sit
+    on one) — what the share_boundaries case must hold."""
+    b0, b1 = rowptr[:-1], rowptr[1:]
+    ends = int(((b1 > b0) & (b1 % t == 0)).sum())
+    empties = int(((b1 == b0) & (b0 % t == 0)).sum())
+    return ends, empties
 
 
 # -- serving checks --------------------------------------------------------
@@ -697,7 +772,8 @@ def main() -> int:
     from recbole_gnn_tpu_torch.ops import cuda_build
     from recbole_gnn_tpu_torch.ops.gather import row_gather, row_gather_plain
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
-        segment_spmm, segment_spmm_transpose, spmm_coo)
+        SHARE_EDGES, _segment_spmm_cuda, segment_spmm,
+        segment_spmm_transpose, spmm_coo)
     from recbole_gnn_tpu_torch.ops.segment_sum import (
         block_segment_sum, block_segment_sum_plain)
     from recbole_gnn_tpu_torch.ops.spmm import build_graph, xla_spmm
@@ -758,8 +834,22 @@ def main() -> int:
             x = torch.cat([params["user_emb"], params["item_emb"]]).contiguous()
             cot = torch.randn(graph.n_nodes, EMBEDDING_SIZE, device=dev,
                               generator=gen)
-            max_err, max_err_t = check_kernels("slice", graph, x, cot)
+            max_err, max_err_t = check_kernels("slice", graph, x, cot,
+                                               SHARE_TIMED)
             xla_err = check_xla_kernels("slice", graph, x, cot)
+            # the share pass and the carry pass sum in a fixed order
+            for kind, rerun in (
+                    ("K1", lambda: segment_spmm(
+                        graph.src, graph.dst, graph.weight, graph.rowptr,
+                        x)),
+                    ("K1T", lambda: segment_spmm_transpose(
+                        graph.rev_src, graph.rev_dst, graph.rev_weight,
+                        graph.rev_rowptr, cot))):
+                if not torch.equal(rerun(), rerun()):
+                    raise AssertionError(f"{kind} reruns at the slice shape "
+                                         "differ")
+            log("determinism: two launches each of K1 and K1T at the slice "
+                "shape equal bit for bit")
             case_rng = np.random.default_rng(SEED + 1)
             for name, s, d_, w, n_dst, n_src, dim in edge_case_graphs(case_rng):
                 g = build_graph(s, d_, w, n_dst, n_src, device=dev,
@@ -768,7 +858,17 @@ def main() -> int:
                     size=(n_src, dim)).astype(np.float32)).to(dev)
                 gc = torch.from_numpy(case_rng.normal(
                     size=(n_dst, dim)).astype(np.float32)).to(dev)
-                check_kernels(name, g, xc, gc)
+                if name == "share_boundaries":
+                    ends, empties = boundary_rows(g.rowptr, SHARE_EDGES)
+                    log(f"share_boundaries at T={SHARE_EDGES}: {ends} rows "
+                        f"end on a share boundary, {empties} empty rows sit "
+                        "on one")
+                    if not (ends and empties):
+                        raise AssertionError("share_boundaries holds no row "
+                                             "on a share boundary")
+                check_kernels(name, g, xc, gc,
+                              SHARE_CHECKED if len(s) <= SMALL_CASE_EDGES
+                              else (None,))
                 errs = check_xla_kernels(name, g, xc, gc)
                 if name in ("hub_rows", "rectangular", "multi_segment"):
                     errs = check_xla_kernels(f"{name} chunk={CHUNK}", g, xc,
@@ -777,10 +877,32 @@ def main() -> int:
                     xla_err[k] = max(xla_err[k], v)
                 del g, xc, gc
 
-            # 6. times at the slice shape: K1, then K1T
+            # 6. times at the slice shape: K1 and K1T at each timed share
+            # size, in turns (up the sizes, then down); then K1 at
+            # SHARE_EDGES beside its plain version and the library call
             nnz, n = graph.nnz, graph.n_nodes
+            sweep = {t: [] for t in SHARE_TIMED}
+            for t in SHARE_TIMED + SHARE_TIMED[::-1]:
+                sweep[t].append((
+                    time_cuda_ms(lambda: _segment_spmm_cuda(
+                        graph.src, graph.dst, graph.weight, graph.rowptr, x,
+                        t)),
+                    time_cuda_ms(lambda: _segment_spmm_cuda(
+                        graph.rev_src, graph.rev_dst, graph.rev_weight,
+                        graph.rev_rowptr, cot, t))))
             kernel_ms = time_cuda_ms(lambda: segment_spmm(
                 graph.src, graph.dst, graph.weight, graph.rowptr, x))
+            split_us = device_us_by_kernel(lambda: segment_spmm(
+                graph.src, graph.dst, graph.weight, graph.rowptr, x))
+            split_t_us = device_us_by_kernel(lambda: segment_spmm_transpose(
+                graph.rev_src, graph.rev_dst, graph.rev_weight,
+                graph.rev_rowptr, cot))
+            # one call is the share pass and the carry pass
+            per_call, per_call_t = len(split_us), len(split_t_us)
+            if (per_call, per_call_t) != (2, 2):
+                raise AssertionError(
+                    f"the profiler saw {split_us} per K1 call and "
+                    f"{split_t_us} per K1T call; expected 2 device kernels")
             plain_ms = time_cuda_ms(lambda: spmm_coo(
                 graph.src, graph.dst, graph.weight, x, n))
             csr = sorted_csr(graph.dst[:nnz], graph.src[:nnz],
@@ -839,8 +961,8 @@ def main() -> int:
                 msgs, graph.dst, rp_hub, "f32"))
             del msgs, acc
 
-            # where K1's time goes: one warp walks each row, so the
-            # longest row (a Zipf hub item, or the padding tail) sets it
+            # K1 on the same n and nnz without the hub rows (uniform) and
+            # without the padding tail: what the row degrees cost it
             rdeg = (graph.rev_rowptr[1:] - graph.rev_rowptr[:-1]).cpu().numpy()
             rp_unpadded = torch.clamp(graph.rowptr, max=nnz)
             unpadded_ms = time_cuda_ms(lambda: segment_spmm(
@@ -875,16 +997,29 @@ def main() -> int:
     n_bytes_t, flops_t = spmm_bytes(graph.n_src_nodes, n, e_pad,
                                     graph.n_src_nodes + 1, EMBEDDING_SIZE)
     bound, bound_t = bound_ms(n_bytes, flops), bound_ms(n_bytes_t, flops_t)
-    log(f"segment_spmm (K1) at the slice shape: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms "
+    # the row gathers, served from L2 at this shape: the practical floor
+    gathered = e_pad * EMBEDDING_SIZE * 4
+    log("segment_spmm share sizes at the slice shape (K1 ms, K1T ms; up "
+        "the sizes, then down): " + "; ".join(
+            f"T={t}: " + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in v)
+            for t, v in sweep.items())
+        + f"; module SHARE_EDGES={SHARE_EDGES}")
+    log("segment_spmm device us per call by kernel (torch.profiler, 20 "
+        f"calls, L2 warm): K1 {json.dumps(split_us)}; K1T "
+        f"{json.dumps(split_t_us)}")
+    log(f"segment_spmm (K1) at the slice shape (T={SHARE_EDGES}, {per_call} "
+        f"device kernels per call): kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms "
         f"(max_abs_err vs plain {lib_err:.3e}), bound {bound:.4f} ms "
-        f"({n_bytes} bytes, {flops} flops)")
+        f"({n_bytes} bytes, {flops} flops); row gathers {gathered} bytes "
+        f"at {gathered / kernel_ms / 1e9:.3f} TB/s")
     log(f"segment_spmm_transpose (K1T) at the slice shape: kernel "
         f"{kernel_t_ms:.4f} ms, plain {plain_t_ms:.4f} ms, "
         f"torch.sparse.mm {library_t_ms:.4f} ms (max_abs_err vs plain "
         f"{lib_err_t:.3e}), bound {bound_t:.4f} ms ({n_bytes_t} "
-        f"bytes, {flops_t} flops); {N_LAYERS} launches per step, "
-        f"{N_LAYERS * steps} per epoch")
+        f"bytes, {flops_t} flops); row gathers {gathered} bytes at "
+        f"{gathered / kernel_t_ms / 1e9:.3f} TB/s; {N_LAYERS} launches "
+        f"per step, {N_LAYERS * steps} per epoch")
     d2_bound = bound_ms(d2_bytes, d2_flops)
     d1_bound = bound_ms(d1_bytes, d1_flops)
     log(f"xla SpMM (D2 + weight product + D1) at the slice shape: forward "
@@ -915,7 +1050,9 @@ def main() -> int:
          "launches_by_path": by_path("segment_spmm"),
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound, "bound_by": bound_by(n_bytes, flops),
-         "library_ms": library_ms},
+         "library_ms": library_ms, "device_kernels_per_call": per_call,
+         "share_sweep_ms": sweep, "device_us_by_kernel": split_us,
+         "gathered_tb_per_s": gathered / kernel_ms / 1e9},
         {"name": "segment_spmm_transpose", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
          "replaces": "recbole_gnn_tpu/ops/spmm.py:339",
@@ -925,7 +1062,9 @@ def main() -> int:
          "max_abs_err": max_err_t, "ms": kernel_t_ms,
          "plain_ms": plain_t_ms, "bound_ms": bound_t,
          "bound_by": bound_by(n_bytes_t, flops_t),
-         "library_ms": library_t_ms},
+         "library_ms": library_t_ms, "device_kernels_per_call": per_call_t,
+         "device_us_by_kernel": split_t_us,
+         "gathered_tb_per_s": gathered / kernel_t_ms / 1e9},
         {"name": "row_gather", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/row_gather.cu",
          "replaces": "scripts/diag/r3_sparse_probe4.py:98",

@@ -7,9 +7,14 @@ Counterpart of ``recbole_gnn_tpu/ops/pallas_spmm.py``.  Both compute
 over an edge list sorted by destination and padded with weight-0
 edges.  The Pallas kernel streamed a materialised message array in
 ≤ 2²⁰-edge segments through one-hot MXU products; the Hopper kernel
-(``csrc/segment_spmm.cu``) gathers ``x[src]`` itself, one warp per
-destination row, driven by a CSR row pointer built here on the host
-(the counterpart of ``build_pallas_meta``).
+(``csrc/segment_spmm.cu``) gathers ``x[src]`` itself over equal edge
+shares of ``SHARE_EDGES`` edges, whatever rows they fall in, driven by
+a CSR row pointer built here on the host (the counterpart of
+``build_pallas_meta``).  A row that crosses a share boundary is summed
+from per-share carries in share order by a second pass.
+:func:`share_schedule` is that arithmetic in torch, and
+:func:`segment_spmm_shares_plain` computes the SpMM by it; the tests
+and ``chip_smoke.py`` use them to check the kernel's schedule.
 
 The host padding (``segment_layout``/``pad_edges``) is a copy of the
 JAX package's, so a padded ``Graph`` holds the same arrays element for
@@ -29,6 +34,7 @@ the same Pallas kernel over ``rev_src``/``rev_dst``/``rev_block_ptr``
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -41,6 +47,10 @@ SEG_MAX = 1 << 20  # max edges per segment of the TPU layout
 # peak bytes of the gathered (E, D) message array in the plain version
 # before it accumulates over edge chunks
 MSGS_BYTES_BUDGET = 1 << 32     # 4 GB
+
+# edges per share of the kernel's schedule (the fastest of the sizes
+# chip_smoke.py times at the LightGCN slice shape; PERF.md)
+SHARE_EDGES = 256
 
 
 def segment_layout(e: int, ec: int | None = None,
@@ -98,6 +108,137 @@ def spmm_coo(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+@dataclass(frozen=True)
+class ShareSchedule:
+    """The kernel's cut of an edge list into equal shares
+    (:func:`share_schedule`).
+
+    Per share ``s`` (``n_shares`` of them, share ``s`` holding edges
+    ``[s·T, (s+1)·T)`` within ``[rowptr[0], rowptr[-1])``):
+    ``first_row``/``last_row``, the rows of its first and last edge (-1
+    for a share with no edge of any row); ``carry_row[s, k]``, the row
+    whose partial sum the share writes to carry slot ``k`` (-1: none).
+    Per row ``r``: ``split``, its edges touch more than one share;
+    ``first_share``/``last_share``, the shares of its first and last
+    edge (last < first for an empty row); ``first_slot``, the slot of
+    ``first_share`` that holds the row's first partial sum (0 where the
+    row is not split)."""
+    share_edges: int
+    n_shares: int
+    first_row: torch.Tensor
+    last_row: torch.Tensor
+    carry_row: torch.Tensor
+    split: torch.Tensor
+    first_share: torch.Tensor
+    last_share: torch.Tensor
+    first_slot: torch.Tensor
+
+
+def share_workspace_shape(n_edges: int, d: int,
+                          share_edges: int = SHARE_EDGES
+                          ) -> tuple[int, int, int]:
+    """Shape of the kernel's carry workspace: two D-float slots for each
+    of the ⌈n_edges / share_edges⌉ shares."""
+    return (-(-n_edges // share_edges), 2, d)
+
+
+def share_schedule(rowptr: torch.Tensor, n_edges: int,
+                   share_edges: int = SHARE_EDGES) -> ShareSchedule:
+    """Which row each share starts and ends on, which rows are split and
+    which carry slot each share writes — the arithmetic that
+    ``csrc/segment_spmm.cu`` runs per share and per row.
+
+    Row pointers past ``n_edges`` are read as ``n_edges``, as the kernel
+    reads them.  A share's first row is the last ``r`` with
+    ``rowptr[r] ≤`` its first edge (the kernel's binary search).  A row
+    is split when its first and last edge lie in different shares; it
+    is then its first share's last row, every later share's first row,
+    and it is summed from slot 0 of those later shares after the first
+    share's slot ``first_slot`` (0 when the row is also that share's
+    first row, else 1)."""
+    t = int(share_edges)
+    if t < 1:
+        raise ValueError(f"share_edges must be >= 1, got {share_edges}")
+    rp = rowptr.to(torch.int64).clamp(max=n_edges)
+    lo, hi = rp[0], rp[-1]
+    n_shares = share_workspace_shape(n_edges, 1, t)[0]
+    s = torch.arange(n_shares, dtype=torch.int64, device=rp.device)
+    a = torch.maximum(s * t, lo)
+    b = torch.minimum((s + 1) * t, hi)
+    has = a < b
+    none = torch.full_like(s, -1)
+    first = torch.where(has, torch.searchsorted(rp, a, right=True) - 1, none)
+    last = torch.where(has, torch.searchsorted(rp, b - 1, right=True) - 1,
+                       none)
+    b0, b1 = rp[:-1], rp[1:]
+    nonempty = b1 > b0
+    first_share = b0 // t
+    last_share = torch.where(nonempty, (b1 - 1) // t, first_share - 1)
+    split = last_share > first_share
+    first_slot = (split & (b0 != torch.maximum(first_share * t, lo))).long()
+    # a -1 row indexes the appended False
+    split_at = torch.cat([split, split.new_zeros(1)])
+    carry_row = torch.stack(
+        [torch.where(split_at[first], first, none),
+         torch.where((last != first) & split_at[last], last, none)], 1)
+    return ShareSchedule(t, n_shares, first, last, carry_row, split,
+                         first_share, last_share, first_slot)
+
+
+def segment_spmm_shares_plain(src: torch.Tensor, weight: torch.Tensor,
+                              rowptr: torch.Tensor, x: torch.Tensor,
+                              share_edges: int = SHARE_EDGES
+                              ) -> torch.Tensor:
+    """out[r] = Σ_{e ∈ [rowptr[r], rowptr[r+1])} weight[e]·x[src[e]]
+    computed by the kernel's schedule in plain torch: a partial sum per
+    (share, row); a row inside one share takes its partial; each share
+    puts the partials of its split rows into its carry slots
+    (:func:`share_schedule`); each split row is the sum of its carries
+    in share order; an empty row is 0.  Used by the tests and
+    ``chip_smoke.py`` to check the schedule; the wrapper's plain version
+    is :func:`spmm_coo`."""
+    n_edges, d = src.shape[0], x.shape[1]
+    sch = share_schedule(rowptr, n_edges, share_edges)
+    rp = rowptr.to(torch.int64).clamp(max=n_edges)
+    n_rows = rp.shape[0] - 1
+    out = torch.zeros((n_rows, d), dtype=x.dtype, device=x.device)
+    lo, hi = int(rp[0]), int(rp[-1])
+    if hi <= lo:
+        return out
+    row = torch.repeat_interleave(
+        torch.arange(n_rows, device=x.device), rp[1:] - rp[:-1])
+    key = torch.arange(lo, hi, device=x.device) // sch.share_edges * n_rows \
+        + row
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[1:] = key[1:] != key[:-1]
+    run_key = key[new]                  # one (share, row) run each
+    msgs = (x.index_select(0, src[lo:hi].long())
+            * weight[lo:hi, None].to(x.dtype))
+    partial = torch.zeros((run_key.shape[0], d), dtype=x.dtype,
+                          device=x.device).index_add_(
+        0, torch.cumsum(new, 0) - 1, msgs)
+    run_row = run_key % n_rows
+    owned = ~sch.split[run_row]
+    out[run_row[owned]] = partial[owned]
+
+    carry = torch.zeros((sch.n_shares, 2, d), dtype=x.dtype,
+                        device=x.device)
+    sh, slot = (sch.carry_row >= 0).nonzero(as_tuple=True)
+    carry[sh, slot] = partial[torch.searchsorted(
+        run_key, sh * n_rows + sch.carry_row[sh, slot])]
+    rows = sch.split.nonzero().squeeze(1)
+    s0 = sch.first_share[rows]
+    span = sch.last_share[rows] - s0
+    acc = carry[s0, sch.first_slot[rows]]
+    live, k = torch.arange(rows.shape[0], device=x.device), 1
+    while live.shape[0]:
+        live = live[span[live] >= k]
+        acc[live] += carry[s0[live] + k, 0]
+        k += 1
+    out[rows] = acc
+    return out
+
+
 def _check_cuda_args(src, dst, weight, rowptr, x):
     cuda_build.check_tensors("segment_spmm", x.device, (
         ("src", src, torch.int32, 1), ("dst", dst, torch.int32, 1),
@@ -120,32 +261,51 @@ def segment_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
     (:func:`build_rowptr`); the output has ``len(rowptr) - 1`` rows.
     A CUDA ``x`` launches the kernel (f32 ``x``/``weight``, int32
     ``src``/``dst``, int64 ``rowptr``, all contiguous on one card; any
-    other input raises).  A CPU ``x`` runs :func:`spmm_coo`.
-    ``segment_spmm.launches`` counts kernel launches."""
+    other input raises) over shares of ``SHARE_EDGES`` edges, with a
+    carry workspace of :func:`share_workspace_shape`; one launch runs
+    the share pass and the carry pass.  A CPU ``x`` runs
+    :func:`spmm_coo`.  ``segment_spmm.launches`` counts kernel
+    launches."""
     n_rows = rowptr.shape[0] - 1
     if x.device.type == "cpu":
         return spmm_coo(src, dst, weight, x, n_rows)
     if x.device.type != "cuda":
         raise ValueError(f"segment_spmm: unsupported device {x.device}")
+    out = _segment_spmm_cuda(src, dst, weight, rowptr, x, SHARE_EDGES)
+    if out.numel():                 # an empty output launches nothing
+        segment_spmm.launches += 1
+    return out
+
+
+segment_spmm.launches = 0
+
+
+def _segment_spmm_cuda(src, dst, weight, rowptr, x,
+                       share_edges: int) -> torch.Tensor:
+    """The kernel over shares of ``share_edges`` edges, on CUDA tensors;
+    counts nothing and launches nothing for an empty output.
+    ``chip_smoke.py`` calls it to check and time other share sizes; the
+    C entry point refuses a size whose shares do not fit in shared
+    memory."""
     _check_cuda_args(src, dst, weight, rowptr, x)
-    d = x.shape[1]
+    n_rows = rowptr.shape[0] - 1
+    e, d = src.shape[0], x.shape[1]
     out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
     if n_rows == 0 or d == 0:
         return out
+    carry = torch.empty(share_workspace_shape(e, d, share_edges),
+                        dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.segment_spmm_f32(
             x.data_ptr(), src.data_ptr(), weight.data_ptr(),
-            rowptr.data_ptr(), out.data_ptr(), n_rows, d,
-            cuda_build.vec_width(x), stream)
+            dst.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+            carry.data_ptr(), n_rows, e, d, cuda_build.vec_width(x),
+            share_edges, stream)
     if rc != 0:
         raise RuntimeError(f"segment_spmm launch failed: CUDA error {rc}")
-    segment_spmm.launches += 1
     return out
-
-
-segment_spmm.launches = 0
 
 
 def segment_spmm_transpose(rev_src: torch.Tensor, rev_dst: torch.Tensor,
@@ -230,7 +390,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.segment_spmm_f32
     if fn.argtypes is None:
         vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, vp]
+        ll, i = ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, vp]
         fn.restype = ctypes.c_int
     return lib

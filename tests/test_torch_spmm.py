@@ -27,11 +27,15 @@ from recbole_gnn_tpu.ops.spmm import build_graph as j_build_graph
 from recbole_gnn_tpu.ops.spmm import spmm as j_spmm
 from recbole_gnn_tpu.ops.spmm import spmm_dense_bipartite as j_spmm_dense
 from recbole_gnn_tpu_torch.ops import cuda_build, segment_spmm as seg_mod
-from recbole_gnn_tpu_torch.ops.segment_spmm import (SegmentSpmmFunction,
+from recbole_gnn_tpu_torch.ops.segment_spmm import (SHARE_EDGES,
+                                                    SegmentSpmmFunction,
                                                     build_rowptr, pad_edges,
                                                     segment_layout,
                                                     segment_spmm,
+                                                    segment_spmm_shares_plain,
                                                     segment_spmm_transpose,
+                                                    share_schedule,
+                                                    share_workspace_shape,
                                                     spmm_coo)
 from recbole_gnn_tpu_torch.ops.spmm import (_check_cuda_impl, build_dense_bipartite,
                                             build_graph, spmm, spmm_any,
@@ -393,3 +397,221 @@ def test_transpose_has_no_fallback_for_cuda():
     assert sp.index("if not cuda:") < sp.index("spmm_coo(")
     assert sp.index("raise ValueError(") < sp.index("segment_spmm(")
     assert "with_reverse=True" in sp and "try:" not in sp
+
+
+# -- the kernel's share schedule (equal edge shares, ordered carries) ------
+
+SHARE_SIZES = [1, 7, 32, 256, 1 << 20]      # the last is larger than E
+# These graphs have rows of up to 1,800 terms that cancel, so the
+# bounds scale with Σ|terms| of each output element: the f32 sums of the
+# same terms in another order stay within a few ulps of it (1e-6); the
+# Pallas kernel's f32x2 products keep ~16 mantissa bits (2^-14).
+SHARE_SUM_RTOL, PALLAS_SUM_RTOL = 1e-6, 2.0 ** -14
+
+
+def _assert_close_abssum(got, want, abssum, rtol, atol):
+    err = np.abs(got - want)
+    lim = rtol * abssum + atol
+    assert (err <= lim).all(), float((err - lim).max())
+
+
+def _share_case(name):
+    """(src, dst, w, x, n_dst, n_src, lay) of the forward CASES and of
+    graphs that stress the share boundaries.  ``rev_rectangular`` is
+    the transpose of a rectangular graph: edges from dst to src, run
+    over the reverse CSR as ``segment_spmm_transpose`` runs it."""
+    if name in CASES:
+        src, dst, w, x, n, lay = _case(name)
+        return src, dst, w, x, n, n, lay
+    rng = np.random.default_rng(sum(map(ord, name)))
+    n, e, d = 200, 3000, 16
+    if name == "giant_row":             # one row holds 60 % of the edges
+        dst = rng.integers(0, n, e)
+        dst[:e * 3 // 5] = 77
+    elif name == "share_boundaries":    # rows end on multiples of 32
+        deg = 32 * rng.choice([0, 1, 2, 4], n, p=[0.25, 0.35, 0.25, 0.15])
+        dst = np.repeat(np.arange(n), deg)
+        e = len(dst)
+    elif name == "empty_on_boundaries":  # empty rows at multiples of 256
+        deg = np.where(np.arange(n) % 3 == 0, 0, 128)
+        dst = np.repeat(np.arange(n), deg)
+        e = len(dst)
+    elif name == "single_row":
+        n, dst = 1, np.zeros(e, np.int64)
+    n_src = 90 if name == "rev_rectangular" else n
+    if name == "rev_rectangular":       # 90 src nodes, 300 dst nodes
+        src, dst = rng.integers(1, 300, e), rng.integers(0, n_src, e)
+        n = 90
+        n_src = 300
+    else:
+        src = rng.integers(0, n_src, e)
+    w = rng.normal(size=e).astype(np.float32)
+    x = rng.normal(size=(n_src, d)).astype(np.float32)
+    return src, dst, w, x, n, n_src, {}
+
+
+SHARE_CASES = CASES + ["giant_row", "share_boundaries",
+                       "empty_on_boundaries", "single_row", "rev_rectangular"]
+_PALLAS_WANT = {}
+
+
+def _pallas_want(name, s, d_, w_, x, n, lay):
+    """The JAX Pallas kernel in interpret mode on the padded edges, once
+    per case."""
+    if name not in _PALLAS_WANT:
+        meta = build_pallas_meta(d_, n, bm=lay.get("bm"), ec=lay.get("ec"),
+                                 seg_max=lay.get("seg_max"))
+        _PALLAS_WANT[name] = np.asarray(pallas_spmm(
+            jnp.asarray(s), jnp.asarray(d_), jnp.asarray(w_), jnp.asarray(x),
+            meta, interpret=True))[:n]
+    return _PALLAS_WANT[name]
+
+
+@pytest.mark.parametrize("share_edges", SHARE_SIZES)
+@pytest.mark.parametrize("name", SHARE_CASES)
+def test_shares_plain_matches_coo_pallas_interpret_and_f64(name, share_edges):
+    """The SpMM computed by the kernel's schedule (per-share partial sums,
+    split rows summed from carries in share order) equals ``spmm_coo``,
+    the float64 oracle and the JAX Pallas kernel in interpret mode, on
+    the padded graph (rev_rectangular: over the reverse CSR)."""
+    src, dst, w, x, n, n_src, lay = _share_case(name)
+    if name == "rev_rectangular":
+        g = build_graph(dst, src, w, n_src, n, device="cpu",
+                        with_pallas=True).reverse()
+        s, d_, w_, rp = g.src, g.dst, g.weight, g.rowptr
+        assert (g.n_nodes, g.n_src_nodes) == (n, n_src)
+    else:
+        ec, seg_max = lay.get("ec"), lay.get("seg_max")
+        s, d_, w_ = (torch.from_numpy(a) for a in
+                     pad_edges(src, dst, w, n, ec=ec, seg_max=seg_max))
+        rp = torch.from_numpy(build_rowptr(d_.numpy(), n))
+    xt = torch.from_numpy(x)
+    got = segment_spmm_shares_plain(s, w_, rp, xt, share_edges).numpy()
+    assert got.shape == (n, x.shape[1])
+    abssum = _oracle(src, dst, np.abs(w), np.abs(x), n)
+    _assert_close_abssum(got, spmm_coo(s, d_, w_, xt, n).numpy(), abssum,
+                         SHARE_SUM_RTOL, F64_ATOL)
+    _assert_close_abssum(got, _oracle(src, dst, w, x, n), abssum,
+                         SHARE_SUM_RTOL, F64_ATOL)
+    want = _pallas_want(name, s.numpy(), d_.numpy(), w_.numpy(), x, n, lay)
+    _assert_close_abssum(got, want, abssum, PALLAS_SUM_RTOL, PALLAS_ATOL)
+    empty = (rp[1:] == rp[:-1]).numpy()
+    assert not got[empty].any()
+    if name in ("share_boundaries", "empty_on_boundaries") \
+            and share_edges in (32, 256):
+        b0, b1 = rp[:-1], rp[1:]
+        assert ((b1 > b0) & (b1 % share_edges == 0)).any()
+        if name == "empty_on_boundaries":
+            assert ((b1 == b0) & (b0 % share_edges == 0)).any()
+    if name == "giant_row" and share_edges <= 32:
+        sch = share_schedule(rp, s.shape[0], share_edges)
+        assert int((sch.last_share - sch.first_share).max()) >= 50
+
+
+def _brute_schedule(rowptr, n_edges, t):
+    """The share schedule from a per-edge row lookup, one edge at a time."""
+    rp = np.minimum(rowptr, n_edges)
+    n_rows = len(rp) - 1
+    row_of = {}
+    for r in range(n_rows):
+        for e in range(rp[r], rp[r + 1]):
+            row_of[e] = r
+    n_shares = -(-n_edges // t)
+    first, last, carry = [], [], []
+    split = [len({e // t for e in range(rp[r], rp[r + 1])}) > 1
+             for r in range(n_rows)]
+    for s in range(n_shares):
+        edges = [e for e in range(s * t, min((s + 1) * t, n_edges))
+                 if e in row_of]
+        if not edges:
+            first.append(-1), last.append(-1), carry.append((-1, -1))
+            continue
+        f, l_ = row_of[edges[0]], row_of[edges[-1]]
+        first.append(f), last.append(l_)
+        carry.append((f if split[f] else -1,
+                      l_ if l_ != f and split[l_] else -1))
+    # a split row's first partial: slot 0 if it is its first share's
+    # first row, else slot 1
+    first_slot = []
+    for r in range(n_rows):
+        if not split[r]:
+            first_slot.append(0)
+            continue
+        s0 = rp[r] // t
+        first_slot.append(0 if first[s0] == r else 1)
+    return first, last, carry, split, first_slot
+
+
+@pytest.mark.parametrize("share_edges", [1, 3, 32, 256])
+@pytest.mark.parametrize("name", ["empty_rows", "giant_row", "share_boundaries",
+                                  "empty_on_boundaries", "single_row"])
+def test_share_schedule_matches_per_edge_lookup(name, share_edges):
+    src, dst, w, x, n, n_src, lay = _share_case(name)
+    dst = np.sort(dst)[:1500]            # keep the per-edge loop short
+    rowptr = build_rowptr(dst, n)
+    # edges past rowptr[-1] (a clamped row pointer) belong to no row
+    n_edges = len(dst) + 5
+    sch = share_schedule(torch.from_numpy(rowptr), n_edges, share_edges)
+    first, last, carry, split, first_slot = _brute_schedule(
+        rowptr, n_edges, share_edges)
+    assert sch.n_shares == -(-n_edges // share_edges)
+    assert sch.first_row.tolist() == first
+    assert sch.last_row.tolist() == last
+    assert [tuple(c) for c in sch.carry_row.tolist()] == carry
+    assert sch.split.tolist() == split
+    assert sch.first_slot.tolist() == first_slot
+    # every split row is one share's carry at the slot first_slot names
+    for r in np.flatnonzero(split):
+        assert sch.carry_row[sch.first_share[r], sch.first_slot[r]] == r
+
+
+def test_share_schedule_clamps_row_pointer_past_edges():
+    """Row pointers past the edge list are read as its length, as the
+    kernel reads them; a share wholly past rowptr[-1] has no rows."""
+    rowptr = torch.tensor([0, 4, 4, 9, 30])
+    sch = share_schedule(rowptr, 12, 4)
+    assert sch.n_shares == 3
+    assert sch.first_row.tolist() == [0, 2, 2]
+    assert sch.carry_row.tolist() == [[-1, -1], [2, -1], [2, -1]]
+    # row 3 is read as edges [9, 12): inside share 2
+    assert sch.split.tolist() == [False, False, True, False]
+    lo = share_schedule(torch.tensor([3, 3, 8]), 8, 2)
+    assert lo.first_row.tolist() == [-1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("e,d,t", [(0, 64, 256), (1, 64, 256), (256, 64, 256),
+                                   (257, 8, 256), (1_703_936, 64, 256),
+                                   (1_703_936, 64, 128), (10, 130, 7)])
+def test_share_workspace_shape(e, d, t):
+    """The carry workspace the wrapper allocates: two D-float slots per
+    share, 3.4 MB at the LightGCN slice shape (E_pad 1,703,936, D 64)."""
+    shape = share_workspace_shape(e, d, t)
+    assert shape == (-(-e // t), 2, d)
+    assert shape[0] == share_schedule(torch.zeros(2, dtype=torch.int64),
+                                      e, t).n_shares
+    if (e, d, t) == (1_703_936, 64, 256):
+        assert 4 * np.prod(shape) == 3_407_872
+    assert share_workspace_shape(e, d) == share_workspace_shape(
+        e, d, SHARE_EDGES)
+
+
+def test_wrapper_checks_share_edges_before_launch():
+    """The wrapper launches at the module's SHARE_EDGES, with the carry
+    workspace allocated for it; the C entry point refuses a share size
+    that is not positive or whose shares do not fit in shared memory
+    before either launch; the CPU path has no share size (spmm_coo)."""
+    src = inspect.getsource(seg_mod.segment_spmm)
+    assert "_segment_spmm_cuda(" in src and "SHARE_EDGES)" in src
+    body = inspect.getsource(seg_mod._segment_spmm_cuda)
+    assert body.index("share_workspace_shape(") < body.index("_library()")
+    assert "torch.empty(" in body and ".launches" not in body
+    cu = open(cuda_build.CSRC_DIR + "/segment_spmm.cu").read()
+    assert "share_edges <= 0" in cu
+    launch = cu[cu.index("int launch("):]
+    assert (launch.index("smem > (size_t)kMaxSmem")
+            < launch.index("share_sum_kernel<VEC><<<")
+            < launch.index("carry_sum_kernel<VEC><<<"))
+    x = torch.ones(3, 2)
+    idx = torch.zeros(2, dtype=torch.int32)
+    got = segment_spmm(idx, idx, torch.ones(2), torch.tensor([0, 2, 2, 2]), x)
+    np.testing.assert_array_equal(got.numpy(), [[2, 2], [0, 0], [0, 0]])
