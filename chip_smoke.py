@@ -26,14 +26,18 @@ the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
 Each path runs with every launch counter set to 0 just before it and
 read just after, and the counts are checked exactly.  Then it holds one
 training step of each impl on the kernels against the same step on the
-plain versions, every kernel against its plain version at the slice
-shape and at edge-case shapes (D1 in all four modes; K1 and K1ᵀ also
-against their share schedule in plain torch, ``segment_spmm_shares_plain``,
-at several share sizes, on a giant row and on rows and empty rows that
-sit on share boundaries), reruns K1 and K1ᵀ at the slice shape for bit
-equality, and times them (K1 and K1ᵀ at each of ``SHARE_TIMED``, with
-the device time of their two kernels and the rate of their row
-gathers).
+plain versions, and every kernel against its plain version at the slice
+shape and at edge-case shapes (a giant row, rows and empty rows that
+sit on share boundaries, one row, forced edge chunks): K1 and K1ᵀ also
+against their share schedule in plain torch
+(``segment_spmm_shares_plain``), D1 in all four modes and in f32 with
+the edge weight that the xla path sums inside it, also against its
+share schedule (``block_segment_sum_shares_plain``), with a row pointer
+that does not start at 0 and accumulating into ``out``; the small edge
+cases at share size 1 too (``SHARE_CHECKED``).  It reruns K1, K1ᵀ and
+D1 at the slice shape for bit equality, reads the device kernels of
+one call of each from the profiler (share pass and carry pass), and
+times them beside their plain versions and one-call yardsticks.
 
 Prints the card's name and power limit, the build, check and timing
 lines, then a ``{"kernels": [...]}`` line and, last,
@@ -78,11 +82,10 @@ CHUNK = 100_003            # the forced xla chunk: boundaries inside rows
 # rows must match exactly: both write 0).  D2 must match bit for bit.
 TOL_REL_ABSSUM = 1e-4
 
-# K1's share sizes: checked on the small edge cases (None: the module's
-# SHARE_EDGES, through the public wrapper), checked and timed at the
-# slice shape (ops.segment_spmm.SHARE_EDGES is the fastest of SHARE_TIMED)
+# K1's and D1's share sizes checked on the small edge cases (None: each
+# module's SHARE_EDGES, through the public wrapper, the only size
+# checked and timed at the slice shape and on the large cases)
 SHARE_CHECKED = (1, None)
-SHARE_TIMED = (128, 256, 512)
 SMALL_CASE_EDGES = 1_000_000
 
 # one training step, kernel against plain: the same f32 sums in another
@@ -296,38 +299,91 @@ def check_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor,
     return max(errs[:-1]), errs[-1]
 
 
+def check_d1(name: str, graph, x: torch.Tensor, share_sizes=(None,)
+             ) -> float:
+    """D1 on one graph's messages ``x[src]`` against its plain version
+    and its share schedule (``block_segment_sum_shares_plain``): f32 with
+    the edge weight, as the xla path calls it, also through a row
+    pointer clamped to the middle third of the edges (``rowptr[0] !=
+    0``); then, on the pre-weighted messages, unweighted f32, bf16 and
+    hilo; each into a new output (empty rows 0) and into a given one
+    (``out=``: out + Σ, empty rows left as they were); stream against
+    its plain version.  At the module's SHARE_EDGES (None, the public
+    wrapper) every case; at another share size of ``share_sizes`` (the
+    uncounted ``_block_segment_sum_cuda``) the weighted ones.  Returns
+    the largest |err|."""
+    from recbole_gnn_tpu_torch.ops.gather import row_gather_plain
+    from recbole_gnn_tpu_torch.ops.segment_sum import (
+        BM, EC, SHARE_EDGES, _block_segment_sum_cuda, block_segment_sum,
+        block_segment_sum_plain, block_segment_sum_shares_plain)
+    raw = row_gather_plain(x, graph.src)
+    w, dst, rp = graph.weight, graph.dst, graph.rowptr
+    msgs = raw * w[:, None]
+    e = raw.shape[0]
+    rp_mid = rp.clamp(e // 3 + 1, 2 * e // 3)
+    prev = torch.randn(graph.n_nodes, x.shape[1], device=x.device)
+    weighted = [("f32 weighted", raw, rp, "f32", w),
+                ("f32 weighted rowptr[0]!=0", raw, rp_mid, "f32", w)]
+    plain = [(m, msgs, rp, m, None) for m in ("f32", "bf16", "hilo")]
+    max_err = 0.0
+    for t in share_sizes:
+        module_t = t in (None, SHARE_EDGES)
+        t = t or SHARE_EDGES
+        for label, m, rowptr, mode, wt in weighted + (plain if module_t
+                                                       else []):
+            def run(out=None):
+                if module_t:
+                    return block_segment_sum(m, dst, rowptr, mode, out=out,
+                                             weight=wt)
+                return _block_segment_sum_cuda(m, dst, rowptr, mode, out, wt,
+                                               BM, EC, t)
+            # Σ|term| (bf16 rounding moves |m| by < 0.4 %)
+            abssum = block_segment_sum_plain(
+                m.abs(), dst, rowptr, weight=None if wt is None else wt.abs())
+            got = run()
+            for kind, want in (
+                    (f"D1 {label} T={t}", block_segment_sum_plain(
+                        m, dst, rowptr, mode, weight=wt)),
+                    (f"D1 {label} (share schedule T={t})",
+                     block_segment_sum_shares_plain(m, rowptr, mode, weight=wt,
+                                                    share_edges=t))):
+                max_err = max(max_err, hold(kind, name, got, want, abssum))
+            got = run(out=prev.clone())
+            max_err = max(max_err, hold(
+                f"D1 {label} out= T={t}", name, got, block_segment_sum_plain(
+                    m, dst, rowptr, mode, out=prev.clone(), weight=wt),
+                abssum + prev.abs()))
+            empty = rowptr[1:] == rowptr[:-1]
+            if not torch.equal(got[empty], prev[empty]):
+                raise AssertionError(f"D1 {label} out= T={t} on {name} "
+                                     "changed rows without edges")
+    # stream mode: Σ|m| of the placeholder rows' own messages
+    abssum = block_segment_sum_plain(msgs.abs(), dst, rp, "stream")
+    for out in (None, prev):
+        got = block_segment_sum(msgs, dst, rp, "stream",
+                                out=None if out is None else out.clone())
+        max_err = max(max_err, hold(
+            "D1 stream" + (" out=" if out is not None else ""), name, got,
+            block_segment_sum_plain(msgs, dst, rp, "stream",
+                                    out=None if out is None else out.clone()),
+            abssum + (0 if out is None else out.abs())))
+    return max_err
+
+
 def check_xla_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor,
-                      chunk: int | None = None) -> dict:
+                      chunk: int | None = None, share_sizes=(None,)) -> dict:
     """D2 and D1 against their plain versions on one graph: D2 gathers
-    the forward messages (bit for bit); D1 sums them in every mode,
-    into a new output and into a given one; then the whole ``xla``
-    SpMM, forward over the graph and transpose over its reverse CSR
-    (with ``chunk``, over forced edge chunks), against ``spmm_coo``.
-    Returns the largest |err| per kernel."""
+    the forward messages (bit for bit); D1 as :func:`check_d1` says (not
+    again when ``chunk`` is given); then the whole ``xla`` SpMM, forward
+    over the graph and transpose over its reverse CSR (with ``chunk``,
+    over forced edge chunks), against ``spmm_coo``.  Returns the largest
+    |err| per kernel."""
     from recbole_gnn_tpu_torch.ops.gather import row_gather, row_gather_plain
     from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
-    from recbole_gnn_tpu_torch.ops.segment_sum import (
-        block_segment_sum, block_segment_sum_plain)
     from recbole_gnn_tpu_torch.ops.spmm import xla_spmm
     d2 = hold("D2", name, row_gather(x, graph.src),
               row_gather_plain(x, graph.src), None)
-    msgs = row_gather_plain(x, graph.src) * graph.weight[:, None]
-    args = (msgs, graph.dst, graph.rowptr)
-    prev = torch.randn(graph.n_nodes, x.shape[1], device=x.device)
-    d1 = 0.0
-    for mode in D1_MODES:
-        # Σ|m| of what the mode adds (bf16 rounding moves |m| by < 0.4 %;
-        # stream adds only the placeholder rows' own messages)
-        abssum = block_segment_sum_plain(
-            msgs.abs(), graph.dst, graph.rowptr,
-            "stream" if mode == "stream" else "f32")
-        d1 = max(d1, hold(f"D1 {mode}", name, block_segment_sum(*args, mode),
-                          block_segment_sum_plain(*args, mode), abssum))
-        d1 = max(d1, hold(f"D1 {mode} out=", name,
-                          block_segment_sum(*args, mode, out=prev.clone()),
-                          block_segment_sum_plain(*args, mode,
-                                                  out=prev.clone()),
-                          abssum + prev.abs()))
+    d1 = 0.0 if chunk else check_d1(name, graph, x, share_sizes)
     spmm_err = 0.0
     for kind, arrays, inp, n_out in (
             ("xla", (graph.src, graph.dst, graph.weight, graph.rowptr), x,
@@ -339,10 +395,15 @@ def check_xla_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor,
         spmm_err = max(spmm_err, hold(
             kind, name, xla_spmm(s, d, w, rp, inp, chunk=chunk),
             spmm_coo(s, d, w, inp, n_out), abssum))
+    d1_log = "checked without chunks" if chunk else (
+        "(f32 weighted and rowptr[0]!=0, f32/bf16/hilo/stream, new and "
+        "out=, vs plain and share schedule T="
+        + ",".join(str(t or "SHARE_EDGES") for t in share_sizes)
+        + f") max_abs_err={d1:.3e}")
     log(f"kernel check D2/D1 {name}: rows={graph.n_nodes} "
         f"e_pad={graph.src.numel()} d={x.shape[1]} chunk={chunk} "
-        f"D2 max_abs_err={d2:.3e} D1 (4 modes, new and out=) "
-        f"max_abs_err={d1:.3e} xla SpMM fwd+T max_abs_err={spmm_err:.3e}")
+        f"D2 max_abs_err={d2:.3e} D1 {d1_log} xla SpMM fwd+T "
+        f"max_abs_err={spmm_err:.3e}")
     return {"row_gather": d2, "block_segment_sum": d1, "xla_spmm": spmm_err}
 
 
@@ -768,14 +829,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from recbole_gnn_tpu_torch.diag import pallas_floor, row_gather as d2
-    from recbole_gnn_tpu_torch.diag.timing import bound_by, bound_ms
+    from recbole_gnn_tpu_torch.diag.timing import (bound_by, bound_ms,
+                                                   host_us_per_call)
     from recbole_gnn_tpu_torch.ops import cuda_build
     from recbole_gnn_tpu_torch.ops.gather import row_gather, row_gather_plain
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
-        SHARE_EDGES, _segment_spmm_cuda, segment_spmm,
-        segment_spmm_transpose, spmm_coo)
+        SHARE_EDGES, segment_spmm, segment_spmm_transpose, spmm_coo)
     from recbole_gnn_tpu_torch.ops.segment_sum import (
-        block_segment_sum, block_segment_sum_plain)
+        SHARE_EDGES as D1_SHARE_EDGES, block_segment_sum,
+        block_segment_sum_plain)
     from recbole_gnn_tpu_torch.ops.spmm import build_graph, xla_spmm
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 U·Iᵀ
@@ -834,22 +896,25 @@ def main() -> int:
             x = torch.cat([params["user_emb"], params["item_emb"]]).contiguous()
             cot = torch.randn(graph.n_nodes, EMBEDDING_SIZE, device=dev,
                               generator=gen)
-            max_err, max_err_t = check_kernels("slice", graph, x, cot,
-                                               SHARE_TIMED)
+            max_err, max_err_t = check_kernels("slice", graph, x, cot)
             xla_err = check_xla_kernels("slice", graph, x, cot)
-            # the share pass and the carry pass sum in a fixed order
+            # the share passes and the carry passes sum in a fixed order
+            raw = row_gather(x, graph.src)      # D1's input on the xla path
             for kind, rerun in (
                     ("K1", lambda: segment_spmm(
                         graph.src, graph.dst, graph.weight, graph.rowptr,
                         x)),
                     ("K1T", lambda: segment_spmm_transpose(
                         graph.rev_src, graph.rev_dst, graph.rev_weight,
-                        graph.rev_rowptr, cot))):
+                        graph.rev_rowptr, cot)),
+                    ("D1", lambda: block_segment_sum(
+                        raw, graph.dst, graph.rowptr, "f32",
+                        weight=graph.weight))):
                 if not torch.equal(rerun(), rerun()):
                     raise AssertionError(f"{kind} reruns at the slice shape "
                                          "differ")
-            log("determinism: two launches each of K1 and K1T at the slice "
-                "shape equal bit for bit")
+            log("determinism: two launches each of K1, K1T and D1 (f32, "
+                "weighted) at the slice shape equal bit for bit")
             case_rng = np.random.default_rng(SEED + 1)
             for name, s, d_, w, n_dst, n_src, dim in edge_case_graphs(case_rng):
                 g = build_graph(s, d_, w, n_dst, n_src, device=dev,
@@ -858,18 +923,19 @@ def main() -> int:
                     size=(n_src, dim)).astype(np.float32)).to(dev)
                 gc = torch.from_numpy(case_rng.normal(
                     size=(n_dst, dim)).astype(np.float32)).to(dev)
-                if name == "share_boundaries":
-                    ends, empties = boundary_rows(g.rowptr, SHARE_EDGES)
-                    log(f"share_boundaries at T={SHARE_EDGES}: {ends} rows "
-                        f"end on a share boundary, {empties} empty rows sit "
-                        "on one")
+                # K1's and D1's share sizes
+                for t in (sorted({SHARE_EDGES, D1_SHARE_EDGES})
+                          if name == "share_boundaries" else ()):
+                    ends, empties = boundary_rows(g.rowptr, t)
+                    log(f"share_boundaries at T={t}: {ends} rows end on a "
+                        f"share boundary, {empties} empty rows sit on one")
                     if not (ends and empties):
                         raise AssertionError("share_boundaries holds no row "
                                              "on a share boundary")
-                check_kernels(name, g, xc, gc,
-                              SHARE_CHECKED if len(s) <= SMALL_CASE_EDGES
-                              else (None,))
-                errs = check_xla_kernels(name, g, xc, gc)
+                sizes = (SHARE_CHECKED if len(s) <= SMALL_CASE_EDGES
+                         else (None,))
+                check_kernels(name, g, xc, gc, sizes)
+                errs = check_xla_kernels(name, g, xc, gc, share_sizes=sizes)
                 if name in ("hub_rows", "rectangular", "multi_segment"):
                     errs = check_xla_kernels(f"{name} chunk={CHUNK}", g, xc,
                                              gc, chunk=CHUNK)
@@ -877,19 +943,9 @@ def main() -> int:
                     xla_err[k] = max(xla_err[k], v)
                 del g, xc, gc
 
-            # 6. times at the slice shape: K1 and K1T at each timed share
-            # size, in turns (up the sizes, then down); then K1 at
-            # SHARE_EDGES beside its plain version and the library call
+            # 6. times at the slice shape: K1 beside its plain version and
+            # the library call
             nnz, n = graph.nnz, graph.n_nodes
-            sweep = {t: [] for t in SHARE_TIMED}
-            for t in SHARE_TIMED + SHARE_TIMED[::-1]:
-                sweep[t].append((
-                    time_cuda_ms(lambda: _segment_spmm_cuda(
-                        graph.src, graph.dst, graph.weight, graph.rowptr, x,
-                        t)),
-                    time_cuda_ms(lambda: _segment_spmm_cuda(
-                        graph.rev_src, graph.rev_dst, graph.rev_weight,
-                        graph.rev_rowptr, cot, t))))
             kernel_ms = time_cuda_ms(lambda: segment_spmm(
                 graph.src, graph.dst, graph.weight, graph.rowptr, x))
             split_us = device_us_by_kernel(lambda: segment_spmm(
@@ -922,7 +978,7 @@ def main() -> int:
                 graph.rev_src, graph.rev_dst, graph.rev_weight, cot,
                 graph.n_src_nodes)).abs().max())
             library_t_ms = time_cuda_ms(lambda: torch.sparse.mm(csr_t, cot))
-            # the xla SpMM whole (D2, the weight product, D1)
+            # the xla SpMM whole (D2, then D1 with the weight)
             xla_ms = time_cuda_ms(lambda: xla_spmm(
                 graph.src, graph.dst, graph.weight, graph.rowptr, x))
             xla_t_ms = time_cuda_ms(lambda: xla_spmm(
@@ -934,20 +990,55 @@ def main() -> int:
             d2_ms = time_cuda_ms(lambda: row_gather(x, graph.src))
             d2_plain_ms = time_cuda_ms(lambda: row_gather_plain(x, graph.src))
             d2_bytes, d2_flops = d2.work(x, graph.src)
-            msgs = row_gather(x, graph.src) * graph.weight[:, None]
-            d1_args = (msgs, graph.dst, graph.rowptr)
+            # D1 as the xla path calls it (f32, the edge weight inside),
+            # its two device kernels, its plain version and two one-call
+            # yardsticks: index_add_ of pre-weighted messages, and
+            # torch.sparse.mm of the (n x E) CSR of the weights
+            w = graph.weight
+            d1_w = (raw, graph.dst, graph.rowptr, "f32")
+            d1_ms = time_cuda_ms(lambda: block_segment_sum(*d1_w, weight=w))
+            d1_plain_ms = time_cuda_ms(lambda: block_segment_sum_plain(
+                *d1_w, weight=w))
+            d1_us = device_us_by_kernel(lambda: block_segment_sum(
+                *d1_w, weight=w))
+            if len(d1_us) != 2:
+                raise AssertionError(f"the profiler saw {d1_us} per D1 call; "
+                                     "expected 2 device kernels")
+            # the host's time per wrapper call, which the event times
+            # leave out
+            host_us = {k: host_us_per_call(fn, dev) for k, fn in (
+                ("segment_spmm", lambda: segment_spmm(
+                    graph.src, graph.dst, graph.weight, graph.rowptr, x)),
+                ("segment_spmm_transpose", lambda: segment_spmm_transpose(
+                    graph.rev_src, graph.rev_dst, graph.rev_weight,
+                    graph.rev_rowptr, cot)),
+                ("row_gather", lambda: row_gather(x, graph.src)),
+                ("block_segment_sum", lambda: block_segment_sum(
+                    *d1_w, weight=w)),
+                ("xla_spmm", lambda: xla_spmm(
+                    graph.src, graph.dst, graph.weight, graph.rowptr, x)))}
+            msgs = raw * w[:, None]
+            acc = torch.zeros(n, EMBEDDING_SIZE, device=dev)
+            d1_index_add_ms = time_cuda_ms(
+                lambda: acc.index_add_(0, graph.dst, msgs))
+            d1_csr = torch.sparse_csr_tensor(
+                graph.rowptr, torch.arange(raw.shape[0], device=dev), w,
+                size=(n, raw.shape[0]))
+            d1_lib_err = float((torch.sparse.mm(d1_csr, raw)
+                                - block_segment_sum_plain(*d1_w, weight=w))
+                               .abs().max())
+            d1_library_ms = time_cuda_ms(lambda: torch.sparse.mm(d1_csr, raw))
+            d1_bytes, d1_flops = pallas_floor.work(raw, graph.rowptr,
+                                                   weighted=True)
+            # each mode on the pre-weighted messages (the probe's input)
             d1 = {}
             for mode in D1_MODES:
                 d1[mode] = {
-                    "ms": time_cuda_ms(lambda: block_segment_sum(*d1_args,
-                                                                 mode)),
+                    "ms": time_cuda_ms(lambda: block_segment_sum(
+                        msgs, graph.dst, graph.rowptr, mode)),
                     "plain_ms": time_cuda_ms(lambda: block_segment_sum_plain(
-                        *d1_args, mode))}
-            acc = torch.zeros(n, EMBEDDING_SIZE, device=dev)
-            d1_library_ms = time_cuda_ms(
-                lambda: acc.index_add_(0, graph.dst, msgs))
-            d1_bytes, d1_flops = pallas_floor.work(msgs, graph.rowptr)
-            # the hub block alone: every other block's range made empty
+                        msgs, graph.dst, graph.rowptr, mode))}
+            # the hub block alone: every other row's range made empty
             deg = (graph.rowptr[1:] - graph.rowptr[:-1]).cpu().numpy()
             tail = graph.n_edges_padded - nnz
             real = deg.copy()
@@ -958,8 +1049,8 @@ def main() -> int:
             rp_hub = graph.rowptr.clamp(lo, hi)
             hub_edges = int(hi - lo)
             d1_hub_ms = time_cuda_ms(lambda: block_segment_sum(
-                msgs, graph.dst, rp_hub, "f32"))
-            del msgs, acc
+                raw, graph.dst, rp_hub, "f32", weight=w))
+            del msgs, acc, raw, d1_csr
 
             # K1 on the same n and nnz without the hub rows (uniform) and
             # without the padding tail: what the row degrees cost it
@@ -999,11 +1090,6 @@ def main() -> int:
     bound, bound_t = bound_ms(n_bytes, flops), bound_ms(n_bytes_t, flops_t)
     # the row gathers, served from L2 at this shape: the practical floor
     gathered = e_pad * EMBEDDING_SIZE * 4
-    log("segment_spmm share sizes at the slice shape (K1 ms, K1T ms; up "
-        "the sizes, then down): " + "; ".join(
-            f"T={t}: " + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in v)
-            for t, v in sweep.items())
-        + f"; module SHARE_EDGES={SHARE_EDGES}")
     log("segment_spmm device us per call by kernel (torch.profiler, 20 "
         f"calls, L2 warm): K1 {json.dumps(split_us)}; K1T "
         f"{json.dumps(split_t_us)}")
@@ -1022,7 +1108,7 @@ def main() -> int:
         f"per step, {N_LAYERS * steps} per epoch")
     d2_bound = bound_ms(d2_bytes, d2_flops)
     d1_bound = bound_ms(d1_bytes, d1_flops)
-    log(f"xla SpMM (D2 + weight product + D1) at the slice shape: forward "
+    log(f"xla SpMM (D2, then D1 with the weight) at the slice shape: forward "
         f"{xla_ms:.4f} ms, transpose {xla_t_ms:.4f} ms (bound of the "
         f"composition as one SpMM {bound:.4f} ms)")
     log(f"row_gather (D2) at the slice shape ({e_pad} rows of "
@@ -1030,11 +1116,22 @@ def main() -> int:
         f"plain = index_select {d2_plain_ms:.4f} ms, bound {d2_bound:.4f} ms "
         f"({d2_bytes} bytes)")
     log(f"block_segment_sum (D1) at the slice shape ({e_pad} x "
-        f"{EMBEDDING_SIZE} messages into {n} rows): bound {d1_bound:.4f} ms "
-        f"({d1_bytes} bytes), index_add_ {d1_library_ms:.4f} ms; "
+        f"{EMBEDDING_SIZE} messages into {n} rows, T={D1_SHARE_EDGES}, "
+        f"{len(d1_us)} device kernels per call): f32 with the weight, as "
+        f"the xla path calls it: kernel {d1_ms:.4f} ms, plain "
+        f"{d1_plain_ms:.4f} ms, bound {d1_bound:.4f} ms ({d1_bytes} "
+        f"bytes, {d1_flops} flops; {d1_bound / d1_ms:.1%} of the bound), "
+        f"torch.sparse.mm of the weights' CSR {d1_library_ms:.4f} ms "
+        f"(max_abs_err vs plain {d1_lib_err:.3e}), index_add_ of "
+        f"pre-weighted messages {d1_index_add_ms:.4f} ms; the hub block "
+        f"alone ({hub_edges} edges) {d1_hub_ms:.4f} ms "
+        f"({d1_hub_ms / d1_ms:.1%} of a call); device us per call "
+        f"(torch.profiler, 20 calls, L2 warm) {json.dumps(d1_us)}; "
+        "modes on pre-weighted messages: "
         + "; ".join(f"{m} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f}"
-                    for m, r in d1.items())
-        + f"; the hub block alone ({hub_edges} edges) {d1_hub_ms:.4f} ms")
+                    for m, r in d1.items()))
+    log("host us per wrapper call (host clock, 50 calls back to back, no "
+        f"sync between them): {json.dumps(host_us)}")
     log(f"launches by path: {json.dumps(paths)}")
 
     def by_path(k):
@@ -1051,7 +1148,8 @@ def main() -> int:
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound, "bound_by": bound_by(n_bytes, flops),
          "library_ms": library_ms, "device_kernels_per_call": per_call,
-         "share_sweep_ms": sweep, "device_us_by_kernel": split_us,
+         "device_us_by_kernel": split_us,
+         "host_us_per_call": host_us["segment_spmm"],
          "gathered_tb_per_s": gathered / kernel_ms / 1e9},
         {"name": "segment_spmm_transpose", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
@@ -1064,6 +1162,7 @@ def main() -> int:
          "bound_by": bound_by(n_bytes_t, flops_t),
          "library_ms": library_t_ms, "device_kernels_per_call": per_call_t,
          "device_us_by_kernel": split_t_us,
+         "host_us_per_call": host_us["segment_spmm_transpose"],
          "gathered_tb_per_s": gathered / kernel_t_ms / 1e9},
         {"name": "row_gather", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/row_gather.cu",
@@ -1075,6 +1174,7 @@ def main() -> int:
          "max_abs_err": xla_err["row_gather"], "ms": d2_ms,
          "plain_ms": d2_plain_ms, "bound_ms": d2_bound,
          "bound_by": bound_by(d2_bytes, d2_flops), "library_ms": d2_plain_ms,
+         "host_us_per_call": host_us["row_gather"],
          "probe_shape": {k: probe2[k] for k in
                          ("ms", "plain_ms", "bound_ms", "library_ms")}},
         {"name": "block_segment_sum", "route": "cuda",
@@ -1084,11 +1184,16 @@ def main() -> int:
          "launches": paths["xla_train"]["block_segment_sum"]
          + paths["xla_serve"]["block_segment_sum"],
          "launches_by_path": by_path("block_segment_sum"),
-         "max_abs_err": xla_err["block_segment_sum"], "ms": d1["f32"]["ms"],
-         "plain_ms": d1["f32"]["plain_ms"], "bound_ms": d1_bound,
+         "max_abs_err": xla_err["block_segment_sum"], "ms": d1_ms,
+         "plain_ms": d1_plain_ms, "bound_ms": d1_bound,
          "bound_by": bound_by(d1_bytes, d1_flops),
-         "library_ms": d1_library_ms,
+         "library_ms": d1_library_ms, "library": "torch.sparse.mm",
+         "index_add_preweighted_ms": d1_index_add_ms,
+         "device_kernels_per_call": len(d1_us), "device_us_by_kernel": d1_us,
+         "host_us_per_call": host_us["block_segment_sum"],
+         "hub_block_ms": d1_hub_ms,
          "modes_ms": {m: r["ms"] for m, r in d1.items()},
+         "modes_plain_ms": {m: r["plain_ms"] for m, r in d1.items()},
          "probe_shape": {"bound_ms": probe1["bound_ms"],
                          "library_ms": probe1["library_ms"],
                          "modes": probe1["modes"]}},

@@ -53,13 +53,16 @@ def make_inputs(device, n: int = N, e: int = E, d: int = D,
 
 
 def work(msgs: torch.Tensor, rowptr: torch.Tensor,
-         bm: int = BM) -> tuple[int, int]:
-    """(bytes, flops) one sum must move and do: the message stream and
-    dst read once, one block pointer per block, the output written
-    once; one add per message element."""
+         weighted: bool = False) -> tuple[int, int]:
+    """(bytes, flops) one sum must move and do: the message stream, dst
+    (and, ``weighted``, the f32 edge weight) and the row pointer read
+    once, the output written once; one add per message element (and a
+    product, weighted)."""
     e, d = msgs.shape
     n = rowptr.shape[0] - 1
-    return e * d * 4 + e * 4 + (-(-n // bm) + 1) * 8 + n * d * 4, e * d
+    n_bytes = e * d * 4 + e * 4 * (2 if weighted else 1) + (n + 1) * 8 \
+        + n * d * 4
+    return n_bytes, e * d * (2 if weighted else 1)
 
 
 def run(device: str = "cuda", n: int = N, e: int = E, d: int = D,

@@ -2,8 +2,12 @@
 
 A time on the card is the median of CUDA-event intervals, each launch
 after a 256 MB write that evicts the 50 MB L2 (the main path finds its
-inputs cold at these sizes).  On the CPU it is the host clock: a number
-about PyTorch's CPU kernels, never a device metric.
+inputs cold at these sizes) and a spin kernel that keeps the card busy
+while the host prepares the launch, so that the interval holds the
+device's time and not the wrapper's host time.  That host time is
+measured apart, by :func:`host_us_per_call`.  On the CPU it is the
+host clock: a number about PyTorch's CPU kernels, never a device
+metric.
 
 Bounds use the H100 SXM's published peaks (NVIDIA data sheet, at the
 700 W power limit): HBM3 at 3.35 TB/s, fp32 outside the tensor cores
@@ -19,6 +23,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# cycles of the spin before each timed launch (~0.5 ms at the H100's
+# clock): longer than any wrapper's host time
+SPIN_CYCLES = 1_000_000
 
 
 def resolve(device: str) -> torch.device:
@@ -34,7 +41,8 @@ def resolve(device: str) -> torch.device:
 def time_ms(fn, device: torch.device, reps: int = 25,
             warmup: int = 3) -> float:
     """Median time of ``fn()`` in ms: CUDA events with the L2 flushed
-    before each launch on a CUDA device, the host clock on the CPU."""
+    and the card kept busy before each launch on a CUDA device, the
+    host clock on the CPU."""
     for _ in range(warmup):
         fn()
     times = []
@@ -47,6 +55,7 @@ def time_ms(fn, device: torch.device, reps: int = 25,
     flush = torch.empty(64 << 20, dtype=torch.float32, device=device)
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -55,6 +64,26 @@ def time_ms(fn, device: torch.device, reps: int = 25,
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def host_us_per_call(fn, device: torch.device, calls: int = 50,
+                     warmup: int = 3) -> float:
+    """Host time of one ``fn()`` in µs: the host clock over ``calls``
+    back-to-back calls with no synchronisation between them (the device
+    queue is drained before and after, outside the interval).  For a
+    kernel wrapper it is the cost of preparing and issuing its launches,
+    which :func:`time_ms` leaves out."""
+    for _ in range(warmup):
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return (t1 - t0) / calls * 1e6
 
 
 def bound_ms(n_bytes: int, flops: int) -> float:

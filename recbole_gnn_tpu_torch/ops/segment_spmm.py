@@ -12,9 +12,11 @@ shares of ``SHARE_EDGES`` edges, whatever rows they fall in, driven by
 a CSR row pointer built here on the host (the counterpart of
 ``build_pallas_meta``).  A row that crosses a share boundary is summed
 from per-share carries in share order by a second pass.
-:func:`share_schedule` is that arithmetic in torch, and
+:func:`share_schedule` is that arithmetic in torch,
+:func:`share_sum_plain` sums messages in edge order by it (D1,
+``ops/segment_sum.py``, runs the same schedule) and
 :func:`segment_spmm_shares_plain` computes the SpMM by it; the tests
-and ``chip_smoke.py`` use them to check the kernel's schedule.
+and ``chip_smoke.py`` use them to check the kernels' schedule.
 
 The host padding (``segment_layout``/``pad_edges``) is a copy of the
 JAX package's, so a padded ``Graph`` holds the same arrays element for
@@ -185,44 +187,40 @@ def share_schedule(rowptr: torch.Tensor, n_edges: int,
                          first_share, last_share, first_slot)
 
 
-def segment_spmm_shares_plain(src: torch.Tensor, weight: torch.Tensor,
-                              rowptr: torch.Tensor, x: torch.Tensor,
-                              share_edges: int = SHARE_EDGES
-                              ) -> torch.Tensor:
-    """out[r] = Σ_{e ∈ [rowptr[r], rowptr[r+1])} weight[e]·x[src[e]]
-    computed by the kernel's schedule in plain torch: a partial sum per
-    (share, row); a row inside one share takes its partial; each share
-    puts the partials of its split rows into its carry slots
-    (:func:`share_schedule`); each split row is the sum of its carries
-    in share order; an empty row is 0.  Used by the tests and
-    ``chip_smoke.py`` to check the schedule; the wrapper's plain version
-    is :func:`spmm_coo`."""
-    n_edges, d = src.shape[0], x.shape[1]
+def share_sum_plain(msgs: torch.Tensor, rowptr: torch.Tensor,
+                    share_edges: int = SHARE_EDGES) -> torch.Tensor:
+    """out[r] = Σ_{e ∈ [rowptr[r], rowptr[r+1])} msgs[e], over messages
+    in edge order, computed by the share schedule in plain torch: a
+    partial sum per (share, row); a row inside one share takes its
+    partial; each share puts the partials of its split rows into its
+    carry slots (:func:`share_schedule`); each split row is the sum of
+    its carries in share order; an empty row is 0.  The schedule of
+    both share kernels: K1 gathers its messages first
+    (:func:`segment_spmm_shares_plain`), D1 sums them as they are
+    (``ops.segment_sum.block_segment_sum_shares_plain``)."""
+    n_edges, d = msgs.shape
+    dev = msgs.device
     sch = share_schedule(rowptr, n_edges, share_edges)
     rp = rowptr.to(torch.int64).clamp(max=n_edges)
     n_rows = rp.shape[0] - 1
-    out = torch.zeros((n_rows, d), dtype=x.dtype, device=x.device)
+    out = torch.zeros((n_rows, d), dtype=msgs.dtype, device=dev)
     lo, hi = int(rp[0]), int(rp[-1])
     if hi <= lo:
         return out
-    row = torch.repeat_interleave(
-        torch.arange(n_rows, device=x.device), rp[1:] - rp[:-1])
-    key = torch.arange(lo, hi, device=x.device) // sch.share_edges * n_rows \
-        + row
+    row = torch.repeat_interleave(torch.arange(n_rows, device=dev),
+                                  rp[1:] - rp[:-1])
+    key = torch.arange(lo, hi, device=dev) // sch.share_edges * n_rows + row
     new = torch.ones_like(key, dtype=torch.bool)
     new[1:] = key[1:] != key[:-1]
     run_key = key[new]                  # one (share, row) run each
-    msgs = (x.index_select(0, src[lo:hi].long())
-            * weight[lo:hi, None].to(x.dtype))
-    partial = torch.zeros((run_key.shape[0], d), dtype=x.dtype,
-                          device=x.device).index_add_(
-        0, torch.cumsum(new, 0) - 1, msgs)
+    partial = torch.zeros((run_key.shape[0], d), dtype=msgs.dtype,
+                          device=dev).index_add_(
+        0, torch.cumsum(new, 0) - 1, msgs[lo:hi])
     run_row = run_key % n_rows
     owned = ~sch.split[run_row]
     out[run_row[owned]] = partial[owned]
 
-    carry = torch.zeros((sch.n_shares, 2, d), dtype=x.dtype,
-                        device=x.device)
+    carry = torch.zeros((sch.n_shares, 2, d), dtype=msgs.dtype, device=dev)
     sh, slot = (sch.carry_row >= 0).nonzero(as_tuple=True)
     carry[sh, slot] = partial[torch.searchsorted(
         run_key, sh * n_rows + sch.carry_row[sh, slot])]
@@ -230,13 +228,26 @@ def segment_spmm_shares_plain(src: torch.Tensor, weight: torch.Tensor,
     s0 = sch.first_share[rows]
     span = sch.last_share[rows] - s0
     acc = carry[s0, sch.first_slot[rows]]
-    live, k = torch.arange(rows.shape[0], device=x.device), 1
+    live, k = torch.arange(rows.shape[0], device=dev), 1
     while live.shape[0]:
         live = live[span[live] >= k]
         acc[live] += carry[s0[live] + k, 0]
         k += 1
     out[rows] = acc
     return out
+
+
+def segment_spmm_shares_plain(src: torch.Tensor, weight: torch.Tensor,
+                              rowptr: torch.Tensor, x: torch.Tensor,
+                              share_edges: int = SHARE_EDGES
+                              ) -> torch.Tensor:
+    """out[r] = Σ_{e ∈ [rowptr[r], rowptr[r+1])} weight[e]·x[src[e]]
+    computed by the kernel's schedule in plain torch: the messages
+    ``weight·x[src]`` summed by :func:`share_sum_plain`.  Used by the
+    tests and ``chip_smoke.py`` to check the schedule; the wrapper's
+    plain version is :func:`spmm_coo`."""
+    msgs = x.index_select(0, src.long()) * weight[:, None].to(x.dtype)
+    return share_sum_plain(msgs, rowptr, share_edges)
 
 
 def _check_cuda_args(src, dst, weight, rowptr, x):

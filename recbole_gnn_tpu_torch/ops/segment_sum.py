@@ -4,14 +4,17 @@ Counterpart of the Pallas floor probe
 (``scripts/diag/pallas_floor.py::make_kernel``: K1's body without its
 gather, one program per BM = 64-row block summing the message chunks of
 its edge range) and of the reduction half of ``sparse_spmm_impl: xla``
-(the sorted ``segment_sum`` of the JAX package's ``spmm_coo``).
+(``x[src] * w`` and the sorted ``segment_sum`` of the JAX package's
+``spmm_coo``).
 
 ``block_segment_sum`` launches the hand-written CUDA kernel
 (``csrc/segment_sum.cu``) for CUDA tensors and runs the plain version,
 :func:`block_segment_sum_plain`, for CPU tensors only.  Its modes are
 the probe's:
 
-  * ``f32``: the exact sum (the ``xla`` path);
+  * ``f32``: the exact sum; with ``weight``, the sum of
+    ``weight[e]·msgs[e]``, each product rounded once (the ``xla`` path,
+    whose edge-weight product is taken inside the sum);
   * ``bf16``: Σ of bf16-rounded messages in f32 (the probe's
     ``n_pass=1``);
   * ``hilo``: Σ (hi + lo), hi = bf16(m), lo = bf16(m − hi)
@@ -19,11 +22,19 @@ the probe's:
   * ``stream``: the probe's copy floor (``n_pass=0``).  Block i, with
     edge range ``[start, end)``, reads every ``ec``-edge chunk that
     range touches and adds only ``msgs[c·ec + r]`` to row ``i·bm + r``,
-    where ``r = dst[c·ec] − i·bm`` lies in ``[0, bm)``.
+    where ``r = dst[c·ec] − i·bm`` lies in ``[0, bm)``.  Block i's edge
+    range is ``rowptr[i·bm]`` to ``rowptr[min((i+1)·bm, n)]`` — the
+    probe's ``block_ptr`` read off the CSR row pointer.
 
-Block i's edge range is ``rowptr[i·bm]`` to ``rowptr[min((i+1)·bm, n)]``
-— the probe's ``block_ptr`` read off the CSR row pointer the ``Graph``
-already carries.
+``bm`` and ``ec`` define the stream mode only.  The kernel runs the
+other three modes on equal edge shares of ``SHARE_EDGES`` edges, one
+warp each, whatever rows they fall in, and sums a row that crosses a
+share boundary from its partial sums in share order — the schedule of
+K1 (``ops/segment_spmm.py``); the partials of a block of shares are
+added in shared memory, the block's carries by a second kernel.
+:func:`block_segment_sum_shares_plain` computes the sum by the share
+schedule in plain torch (the same partial sums, added in the same
+order), for the tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -33,16 +44,22 @@ import ctypes
 import torch
 
 from recbole_gnn_tpu_torch.ops import cuda_build
+from recbole_gnn_tpu_torch.ops.segment_spmm import share_sum_plain
 
 MODES = ("f32", "bf16", "hilo", "stream")
-BM = 64      # rows per block (the probe's BM)
+BM = 64      # rows per block of the stream mode (the probe's BM)
 EC = 2048    # edges per chunk of the stream mode (the probe's EC)
 
+# edges per share (one warp's) of the kernel's schedule (f32, bf16,
+# hilo): the size that chip_smoke.py checks and times (PERF.md)
+SHARE_EDGES = 128
 
-def _rounded(msgs: torch.Tensor, mode: str) -> torch.Tensor:
+
+def _terms(msgs: torch.Tensor, mode: str,
+           weight: torch.Tensor | None = None) -> torch.Tensor:
     """The term each message adds in ``mode`` (f32, bf16, hilo)."""
     if mode == "f32":
-        return msgs
+        return msgs if weight is None else weight[:, None] * msgs
     hi = msgs.to(torch.bfloat16).to(msgs.dtype)
     if mode == "bf16":
         return hi
@@ -68,24 +85,50 @@ def _stream_plain(msgs, dst, rowptr, out, bm, ec):
 
 def block_segment_sum_plain(msgs: torch.Tensor, dst: torch.Tensor,
                             rowptr: torch.Tensor, mode: str = "f32",
-                            out: torch.Tensor | None = None, bm: int = BM,
+                            out: torch.Tensor | None = None,
+                            weight: torch.Tensor | None = None, bm: int = BM,
                             ec: int = EC) -> torch.Tensor:
     """The plain version of every mode, following the definitions in
-    the module docstring; sums with ``index_add_`` (into ``out`` in
-    place when given, else into zeros)."""
-    _check_mode(msgs, mode, bm, ec)
+    the module docstring; sums the edges ``[rowptr[0], rowptr[-1])``
+    with ``index_add_`` (into ``out`` in place when given, else into
+    zeros)."""
+    _check_mode(msgs, mode, weight, bm, ec)
     if out is None:
         out = torch.zeros((rowptr.shape[0] - 1, msgs.shape[1]),
                           dtype=msgs.dtype, device=msgs.device)
     if mode == "stream":
         return _stream_plain(msgs, dst, rowptr, out, bm, ec)
-    return out.index_add_(0, dst, _rounded(msgs, mode))
+    lo, hi = rowptr[[0, -1]].clamp(max=msgs.shape[0]).tolist()
+    w = None if weight is None else weight[lo:hi]
+    return out.index_add_(0, dst[lo:hi], _terms(msgs[lo:hi], mode, w))
 
 
-def _check_mode(msgs, mode, bm, ec):
+def block_segment_sum_shares_plain(msgs: torch.Tensor, rowptr: torch.Tensor,
+                                   mode: str = "f32",
+                                   out: torch.Tensor | None = None,
+                                   weight: torch.Tensor | None = None,
+                                   share_edges: int = SHARE_EDGES
+                                   ) -> torch.Tensor:
+    """The kernel's sum in ``mode`` (f32, bf16, hilo) computed by its
+    share schedule in plain torch (``ops.segment_spmm.share_sum_plain``
+    over the mode's terms), added to ``out`` when given, as the kernel
+    adds each row's sum to it.  For the tests and ``chip_smoke.py``;
+    the wrapper's plain version is :func:`block_segment_sum_plain`."""
+    _check_mode(msgs, mode, weight, BM, EC)
+    if mode == "stream":
+        raise ValueError("block_segment_sum: stream mode has no share "
+                         "schedule")
+    got = share_sum_plain(_terms(msgs, mode, weight), rowptr, share_edges)
+    return got if out is None else out.add_(got)
+
+
+def _check_mode(msgs, mode, weight, bm, ec):
     if mode not in MODES:
         raise ValueError(f"block_segment_sum: mode must be one of {MODES}, "
                          f"got {mode!r}")
+    if weight is not None and mode != "f32":
+        raise ValueError(f"block_segment_sum: a weight is summed in f32 "
+                         f"mode only, got mode {mode!r}")
     if bm < 1:
         raise ValueError(f"block_segment_sum: bm must be >= 1, got {bm}")
     if mode == "stream" and (ec < 4 or ec % 4 or msgs.shape[0] % ec):
@@ -94,15 +137,19 @@ def _check_mode(msgs, mode, bm, ec):
             f"edge count ({msgs.shape[0]}) a multiple of ec ({ec})")
 
 
-def _check_cuda_args(msgs, dst, rowptr, out, mode):
+def _check_cuda_args(msgs, dst, rowptr, out, weight, mode):
     specs = [("msgs", msgs, torch.float32, 2), ("dst", dst, torch.int32, 1),
              ("rowptr", rowptr, torch.int64, 1)]
     if out is not None:
         specs.append(("out", out, torch.float32, 2))
+    if weight is not None:
+        specs.append(("weight", weight, torch.float32, 1))
     cuda_build.check_tensors("block_segment_sum", msgs.device, specs)
-    if dst.shape[0] != msgs.shape[0]:
-        raise ValueError(f"block_segment_sum: dst has {dst.shape[0]} edges, "
-                         f"msgs {msgs.shape[0]}")
+    e = msgs.shape[0]
+    if dst.shape[0] != e or (weight is not None and weight.shape[0] != e):
+        raise ValueError(
+            f"block_segment_sum: msgs has {e} edges, dst {dst.shape[0]}"
+            + ("" if weight is None else f", weight {weight.shape[0]}"))
     if rowptr.shape[0] < 1:
         raise ValueError("block_segment_sum: rowptr needs n_rows + 1 >= 1 "
                          "entries")
@@ -115,10 +162,11 @@ def _check_cuda_args(msgs, dst, rowptr, out, mode):
                          "16-byte aligned")
 
 
-def _load_width(msgs: torch.Tensor) -> int:
-    """Floats per lane of the message loads: the widest the row allows,
-    narrowed while half a warp's loads would cover the row."""
-    vec, d = cuda_build.vec_width(msgs), msgs.shape[1]
+def _lane_width(d: int, out: torch.Tensor) -> int:
+    """Floats per lane of the kernel's shared-memory reads and output
+    stores: the widest that divides the row and the output's alignment,
+    narrowed while half a warp would cover the row."""
+    vec = cuda_build.vec_width(out)
     while vec > 1 and d <= 16 * vec:
         vec //= 2
     return vec
@@ -126,26 +174,48 @@ def _load_width(msgs: torch.Tensor) -> int:
 
 def block_segment_sum(msgs: torch.Tensor, dst: torch.Tensor,
                       rowptr: torch.Tensor, mode: str = "f32",
-                      out: torch.Tensor | None = None, bm: int = BM,
+                      out: torch.Tensor | None = None,
+                      weight: torch.Tensor | None = None, bm: int = BM,
                       ec: int = EC) -> torch.Tensor:
     """Sum dst-sorted message rows into ``len(rowptr) - 1`` rows.
 
     ``msgs`` (E, D) are sorted by ``dst`` (E,), and ``rowptr`` is their
-    CSR row pointer (``rowptr[0] == 0``, ``rowptr[-1] == E``).  A given
-    ``out`` is accumulated into in place (the TPU kernel's ``prev_ref``
-    alias), and returned; otherwise a new tensor is.  A CUDA ``msgs``
-    launches the kernel (f32 ``msgs``/``out``, int32 ``dst``, int64
-    ``rowptr``, all contiguous on one card; any other input raises).  A
-    CPU ``msgs`` runs :func:`block_segment_sum_plain`.
+    CSR row pointer; edges outside ``[rowptr[0], rowptr[-1])`` belong
+    to no row.  ``weight`` (E,), f32 mode only, scales each message
+    first.  A given ``out`` is accumulated into in place (the TPU
+    kernel's ``prev_ref`` alias) and returned, its rows without edges
+    left as they are; otherwise a new tensor is.  A CUDA ``msgs``
+    launches the kernel (f32 ``msgs``/``out``/``weight``, int32 ``dst``,
+    int64 ``rowptr``, all contiguous on one card; any other input
+    raises); f32, bf16 and hilo run a share pass and a carry pass over
+    a workspace of one (2, D) slot pair per block of shares, sized by
+    the kernel's library.  A CPU
+    ``msgs`` runs :func:`block_segment_sum_plain`.
     ``block_segment_sum.launches`` counts kernel launches."""
     if msgs.device.type == "cpu":
-        return block_segment_sum_plain(msgs, dst, rowptr, mode, out, bm, ec)
+        return block_segment_sum_plain(msgs, dst, rowptr, mode, out, weight,
+                                       bm, ec)
     if msgs.device.type != "cuda":
         raise ValueError(f"block_segment_sum: unsupported device "
                          f"{msgs.device}")
-    _check_mode(msgs, mode, bm, ec)
-    _check_cuda_args(msgs, dst, rowptr, out, mode)
-    n_rows, d = rowptr.shape[0] - 1, msgs.shape[1]
+    out = _block_segment_sum_cuda(msgs, dst, rowptr, mode, out, weight, bm,
+                                  ec, SHARE_EDGES)
+    if out.numel():                 # an empty output launches nothing
+        block_segment_sum.launches += 1
+    return out
+
+
+block_segment_sum.launches = 0
+
+
+def _block_segment_sum_cuda(msgs, dst, rowptr, mode, out, weight, bm, ec,
+                            share_edges: int) -> torch.Tensor:
+    """The kernel over shares of ``share_edges`` edges, on CUDA tensors;
+    counts nothing and launches nothing for an empty output.
+    ``chip_smoke.py`` calls it to check other share sizes."""
+    _check_mode(msgs, mode, weight, bm, ec)
+    _check_cuda_args(msgs, dst, rowptr, out, weight, mode)
+    n_rows, (e, d) = rowptr.shape[0] - 1, msgs.shape
     accumulate = out is not None
     if out is None:
         out = torch.empty((n_rows, d), dtype=torch.float32,
@@ -153,27 +223,41 @@ def block_segment_sum(msgs: torch.Tensor, dst: torch.Tensor,
     if n_rows == 0 or d == 0:
         return out
     lib = _library()
+    carry = None
+    if mode != "stream":
+        # one carry slot pair per block of the share pass, as the .cu
+        # lays its grid out
+        rows = lib.block_segment_sum_carry_rows(e, d, int(weight is not None),
+                                                share_edges)
+        if rows < 0:
+            raise ValueError(f"block_segment_sum: no share layout for rows "
+                             f"of {d} floats at share_edges={share_edges}")
+        carry = torch.empty((rows, 2, d), dtype=torch.float32,
+                            device=msgs.device)
     with torch.cuda.device(msgs.device):
         stream = torch.cuda.current_stream(msgs.device).cuda_stream
         rc = lib.block_segment_sum_f32(
             msgs.data_ptr(), dst.data_ptr(), rowptr.data_ptr(),
-            out.data_ptr(), n_rows, d, _load_width(msgs), MODES.index(mode),
-            bm, ec, int(accumulate), stream)
+            None if weight is None else weight.data_ptr(), out.data_ptr(),
+            None if carry is None else carry.data_ptr(), n_rows, e, d,
+            _lane_width(d, out), MODES.index(mode), bm, ec, share_edges,
+            int(accumulate), stream)
     if rc != 0:
         raise RuntimeError(f"block_segment_sum launch failed: CUDA error {rc}")
-    block_segment_sum.launches += 1
     return out
-
-
-block_segment_sum.launches = 0
 
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("segment_sum")
     fn = lib.block_segment_sum_f32
     if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, i, i, i, i, i, i,
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, i, i, i,
                        vp]
         fn.restype = ctypes.c_int
+    rows = lib.block_segment_sum_carry_rows
+    if rows.argtypes is None:
+        rows.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int]
+        rows.restype = ctypes.c_longlong
     return lib

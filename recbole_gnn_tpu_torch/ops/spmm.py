@@ -13,8 +13,8 @@ Implementation switch (config ``sparse_spmm_impl``, carried on the
   * ``xla``: the JAX package's gather + sorted segment-sum
     (``spmm_coo`` / ``_spmm_coo_chunked``), here :func:`xla_spmm`: the
     row gather kernel (``ops/gather.py``, D2) makes the messages and the
-    block segment sum kernel (``ops/segment_sum.py``, D1) reduces them,
-    over edge chunks above ``MSGS_BYTES_BUDGET``.
+    block segment sum kernel (``ops/segment_sum.py``, D1) weights and
+    reduces them, over edge chunks above ``MSGS_BYTES_BUDGET``.
   * ``ell``: bucketed-ELL is not ported yet (ROADMAP K2); on a CUDA
     tensor it raises.
 
@@ -195,9 +195,11 @@ def xla_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
              rowptr: torch.Tensor, x: torch.Tensor,
              chunk: int | None = None) -> torch.Tensor:
     """out[r] = Σ_{e ∈ [rowptr[r], rowptr[r+1])} weight[e]·x[src[e]] as
-    ``sparse_spmm_impl: xla`` computes it: the messages ``x[src]·w``
-    by :func:`row_gather`, then their sorted sum by
-    :func:`block_segment_sum` (f32 mode) into ``len(rowptr) - 1`` rows.
+    ``sparse_spmm_impl: xla`` computes it: the messages ``x[src]`` by
+    :func:`row_gather`, then the sorted sum of ``weight[e]·msgs[e]`` by
+    :func:`block_segment_sum` (f32 mode with the weight, each product
+    rounded once, as JAX's ``x[src] * w``) into ``len(rowptr) - 1``
+    rows.
 
     Above ``MSGS_BYTES_BUDGET`` of messages, or with ``chunk``, it runs
     over edge chunks of ``chunk`` edges as the JAX package's
@@ -211,12 +213,12 @@ def xla_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
     out = None
     for s in range(0, max(e, 1), chunk):
         c = min(chunk, e - s)
+        # the (c, D) message array is the peak; D1 reads it once, with
+        # the weight, and writes only the output
         msgs = row_gather(x, src[s:s + c])
-        # in place: the (c, D) message array is the peak, and a product
-        # into a new tensor would double it
-        msgs.mul_(weight[s:s + c, None])
         rp = rowptr if c == e else rowptr.clamp(s, s + c) - s
-        out = block_segment_sum(msgs, dst[s:s + c], rp, "f32", out=out)
+        out = block_segment_sum(msgs, dst[s:s + c], rp, "f32", out=out,
+                                weight=weight[s:s + c])
     return out
 
 
