@@ -2,42 +2,51 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from ``recbole_gnn_tpu_torch/csrc``
+Builds the port's four CUDA kernels from ``recbole_gnn_tpu_torch/csrc``
 (one ``nvcc`` each, all at once) and drives the port's paths end to end
 through the entry points a user calls, on a seeded synthetic dataset of
 the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
 1,027,370 interactions) with LightGCN at its published width
 (embedding_size 64, 3 layers) on the sparse graph:
 
-1. ``sparse_spmm_impl: pallas`` training: ``run_recbole_gnn_tpu`` for
-   2 epochs — 415 steps of 2,048 pairs each, every step 3 forward SpMMs
-   (K1, ``segment_spmm``) and, in the backward, 3 transpose SpMMs (K1ᵀ)
-   — with full-sort validation after each epoch, a checkpoint at the
-   best epoch and the test evaluation;
-2. ``pallas`` serving: ``export_artifact`` from that checkpoint, then
+1. ``sparse_spmm_impl: ell`` (the config's default) training:
+   ``run_recbole_gnn_tpu`` for 2 epochs — 415 steps of 2,048 pairs
+   each, every step 3 forward SpMMs (K2, ``ell_spmm``, the bucketed-ELL
+   kernel) and, in the backward, 3 transpose SpMMs (K2ᵀ, the same kernel
+   over the transpose layout) — with full-sort validation after each
+   epoch, a checkpoint at the best epoch and the test evaluation;
+2. ``ell`` serving: ``export_artifact`` from that checkpoint, then
    ``RecServer`` for batches of 1/8/64/1024 users and one HTTP request;
-3. ``sparse_spmm_impl: xla`` training, the same run with every SpMM
-   made of the row gather (D2, ``row_gather``) and the block segment
-   sum (D1, ``block_segment_sum``), forward and backward;
-4. ``xla`` serving: export from the xla checkpoint and ``RecServer``;
-5. the probes: D1 and D2 at the shapes of the TPU probes they replace
+3. ``sparse_spmm_impl: pallas`` training, 1 epoch, every SpMM K1
+   (``segment_spmm``) forward and K1ᵀ back, and its serving;
+4. ``sparse_spmm_impl: xla`` training, 1 epoch, every SpMM made of the
+   row gather (D2, ``row_gather``) and the block segment sum (D1,
+   ``block_segment_sum``), forward and backward, and its serving;
+5. SimGCL (9 K2 forward and 9 K2ᵀ per step: an unperturbed and two
+   perturbed propagations) and XSimGCL (3 and 3) on ``ell``, 1 epoch
+   each, at the same shape and width;
+6. the probes: D1 and D2 at the shapes of the TPU probes they replace
    (``recbole_gnn_tpu_torch.diag.pallas_floor`` / ``.row_gather``).
 
 Each path runs with every launch counter set to 0 just before it and
 read just after, and the counts are checked exactly.  Then it holds one
-training step of each impl on the kernels against the same step on the
-plain versions, and every kernel against its plain version at the slice
-shape and at edge-case shapes (a giant row, rows and empty rows that
-sit on share boundaries, one row, forced edge chunks): K1 and K1ᵀ also
+LightGCN training step of each impl on the kernels against the same
+step on the plain versions, and every kernel against its plain version
+at the slice shape and at edge-case shapes (a giant row, rows and empty
+rows that sit on share boundaries, rows on ELL bucket boundaries,
+isolated nodes, one row, forced edge chunks): K2 and K2ᵀ against
+``ell_spmm_plain`` and ``spmm_coo``, K1 and K1ᵀ in ``bf16`` and
+``packed`` against ``segment_spmm_plain``, K1 and K1ᵀ also
 against their share schedule in plain torch
 (``segment_spmm_shares_plain``), D1 in all four modes and in f32 with
 the edge weight that the xla path sums inside it, also against its
 share schedule (``block_segment_sum_shares_plain``), with a row pointer
 that does not start at 0 and accumulating into ``out``; the small edge
-cases at share size 1 too (``SHARE_CHECKED``).  It reruns K1, K1ᵀ and
-D1 at the slice shape for bit equality, reads the device kernels of
-one call of each from the profiler (share pass and carry pass), and
-times them beside their plain versions and one-call yardsticks.
+cases at share size 1 too (``SHARE_CHECKED``).  It reruns K1, K1ᵀ, K2,
+K2ᵀ and D1 at the slice shape for bit equality, reads the device
+kernels of one call of each from the profiler (K1 and D1: share pass
+and carry pass; K2: row pass and combine pass), and times them beside
+their plain versions and one-call yardsticks.
 
 Prints the card's name and power limit, the build, check and timing
 lines, then a ``{"kernels": [...]}`` line and, last,
@@ -66,13 +75,18 @@ import torch
 SEED = 2020
 N_LAYERS = 3
 EMBEDDING_SIZE = 64
-EPOCHS = 2
+# epochs per path: the default impl's LightGCN run long enough to see
+# its loss fall, every other path one epoch
+EPOCHS = {("LightGCN", "ell"): 2}
+# propagations per training step (each N_LAYERS SpMMs forward and back)
+PROPAGATIONS = {"LightGCN": 1, "XSimGCL": 1, "SimGCL": 3}
 # the LightGCN paper's Gowalla statistics (He et al., 2020, Table 1)
 GOWALLA_SHAPE = {"n_users": 29858, "n_items": 40981, "n_inter": 1027370}
 BATCHES = (1, 8, 64, 1024)
 TOP_K = 10
 TIMED_STEPS = 25           # the separately timed sample of training steps
-SOURCES = ("segment_spmm", "row_gather", "segment_sum")
+SOURCES = ("segment_spmm", "row_gather", "segment_sum", "ell_spmm")
+K1_MODES = ("bf16", "packed")   # K1's precisions besides f32x2
 D1_MODES = ("f32", "bf16", "hilo", "stream")
 CHUNK = 100_003            # the forced xla chunk: boundaries inside rows
 
@@ -103,13 +117,16 @@ def log(msg: str):
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
+    from recbole_gnn_tpu_torch.ops.ell_spmm import (ell_spmm,
+                                                    ell_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.gather import row_gather
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
         segment_spmm, segment_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.segment_sum import block_segment_sum
     return {"segment_spmm": segment_spmm,
             "segment_spmm_transpose": segment_spmm_transpose,
-            "row_gather": row_gather, "block_segment_sum": block_segment_sum}
+            "row_gather": row_gather, "block_segment_sum": block_segment_sum,
+            "ell_spmm": ell_spmm, "ell_spmm_transpose": ell_spmm_transpose}
 
 
 def reset_counts():
@@ -118,10 +135,11 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    """Launches by kernel; K1 forward = segment_spmm's count less the
-    transpose's (segment_spmm_transpose launches through it)."""
+    """Launches by kernel; K1 (K2) forward = segment_spmm's (ell_spmm's)
+    count less the transpose's, which launches through it."""
     c = {k: fn.launches for k, fn in counters().items()}
     c["segment_spmm"] -= c["segment_spmm_transpose"]
+    c["ell_spmm"] -= c["ell_spmm_transpose"]
     return c
 
 
@@ -207,6 +225,18 @@ def spmm_bytes(n_out: int, n_in: int, e: int, n_ptr: int,
     once; 2·E·d flops."""
     return (n_in * d * 4 + n_out * d * 4 + e * 4 + e * 4 + n_ptr * 8,
             2 * e * d)
+
+
+def ell_bytes(meta, n_in: int, d: int) -> tuple[int, int]:
+    """(bytes, flops) of one K2 call over the layout ``meta``: x read
+    once, out written once, each slot's int32 index and f32 weight, the
+    per-virtual-row plan (int32) and the rest lists (3 × int32), the
+    split nodes' workspace rows written and read once; 2·E_pad·d
+    flops."""
+    return (n_in * d * 4 + meta.n_nodes * d * 4 + meta.e_padded * 8
+            + meta.n_vrows * 4 + meta.rest_node.numel() * 12
+            + 2 * meta.n_multi_vrows * d * 4,
+            2 * meta.e_padded * d)
 
 
 def sorted_csr(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
@@ -297,6 +327,72 @@ def check_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor,
             f"{int((sch.last_share - sch.first_share).max()) + 1}")
         errs.append(max_err)
     return max(errs[:-1]), errs[-1]
+
+
+def check_ell(name: str, graph, x: torch.Tensor, g: torch.Tensor
+              ) -> tuple[float, float]:
+    """K2 (forward over ``graph.ell``, on x) and K2ᵀ (over
+    ``graph.rev_ell``, on the cotangent g) against their plain version
+    ``ell_spmm_plain`` and, through the graph's own COO arrays, against
+    ``spmm_coo``; each rerun bit for bit.  Returns (max |err| forward,
+    max |err| transpose)."""
+    from recbole_gnn_tpu_torch.ops.ell_spmm import (
+        ell_spmm, ell_spmm_plain, ell_spmm_transpose)
+    from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
+    errs = []
+    for kind, meta, inp, coo, n_out, run in (
+            ("K2", graph.ell, x, (graph.src, graph.dst, graph.weight),
+             graph.n_nodes, lambda: ell_spmm(graph.ell, x)),
+            ("K2T", graph.rev_ell, g,
+             (graph.rev_src, graph.rev_dst, graph.rev_weight),
+             graph.n_src_nodes,
+             lambda: ell_spmm_transpose(graph.rev_ell, g))):
+        s, d, w = coo
+        got = run()
+        abssum = spmm_coo(s, d, w.abs(), inp.abs(), n_out)
+        max_err = max(hold(kind, name, got, ell_spmm_plain(meta, inp),
+                           abssum),
+                      hold(f"{kind} (vs spmm_coo)", name, got,
+                           spmm_coo(s, d, w, inp, n_out), abssum))
+        if not torch.equal(got, run()):
+            raise AssertionError(f"{kind} reruns on {name} differ")
+        log(f"kernel check {kind} {name}: rows={n_out} nnz={graph.nnz} "
+            f"e_pad={meta.e_padded} ks={list(meta.ks)} "
+            f"vrows={meta.n_vrows} split_nodes={meta.n_multi} "
+            f"split_vrows={meta.n_multi_vrows} "
+            f"isolated={meta.rest_node.numel() - meta.n_multi} "
+            f"d={inp.shape[1]} max_abs_err={max_err:.3e} rerun bit-equal")
+        errs.append(max_err)
+    return errs[0], errs[1]
+
+
+def check_k1_modes(name: str, graph, x: torch.Tensor, g: torch.Tensor
+                   ) -> dict:
+    """K1 and K1ᵀ in each of ``K1_MODES`` against its plain version
+    ``segment_spmm_plain`` (the same terms, summed in another order).
+    Returns the largest |err| per mode."""
+    from recbole_gnn_tpu_torch.ops.segment_spmm import (
+        segment_spmm, segment_spmm_plain, segment_spmm_transpose, spmm_coo)
+    out = {}
+    for prec in K1_MODES:
+        errs = []
+        for kind, arrays, rp, inp, n_out, fn in (
+                ("K1", (graph.src, graph.dst, graph.weight), graph.rowptr,
+                 x, graph.n_nodes, segment_spmm),
+                ("K1T", (graph.rev_src, graph.rev_dst, graph.rev_weight),
+                 graph.rev_rowptr, g, graph.n_src_nodes,
+                 segment_spmm_transpose)):
+            s, d, w = arrays
+            got = fn(s, d, w, rp, inp, prec)
+            # Σ|term|: bf16 rounding moves a term by < 0.4 %
+            abssum = spmm_coo(s, d, w.abs(), inp.abs(), n_out)
+            errs.append(hold(f"{kind} {prec}", name, got,
+                             segment_spmm_plain(s, d, w, inp, n_out, prec),
+                             abssum))
+        out[prec] = max(errs)
+    log(f"kernel check K1/K1T modes {name}: " + ", ".join(
+        f"{p} max_abs_err={e:.3e}" for p, e in out.items()))
+    return out
 
 
 def check_d1(name: str, graph, x: torch.Tensor, share_sizes=(None,)
@@ -452,6 +548,15 @@ def edge_case_graphs(rng: np.random.Generator):
     e = 30_000                                      # one destination row
     cases.append(("single_row", rng.integers(0, 100, e), np.zeros(e, int),
                   1, 100, 64))
+    # degrees on and next to the ELL bucket widths and K_CAP (256: one
+    # virtual row; 257 and 513: split), a tenth of the nodes isolated
+    n = 4000
+    deg = rng.choice([0, 1, 2, 4, 7, 8, 9, 64, 255, 256, 257, 512, 513], n,
+                     p=[0.1, 0.15, 0.15, 0.1, 0.05, 0.1, 0.05, 0.1, 0.04,
+                        0.06, 0.04, 0.03, 0.03])
+    on_buckets = np.repeat(np.arange(n), deg)
+    cases.append(("ell_boundaries", rng.integers(0, n, len(on_buckets)),
+                  on_buckets, n, n, 64))
     return [(nm, s, d_, rng.normal(size=len(s)).astype(np.float32), nd, ns,
              dim) for nm, s, d_, nd, ns, dim in cases]
 
@@ -512,30 +617,40 @@ def http_roundtrip(srv, users: list[str], k: int) -> dict:
 
 # -- training ---------------------------------------------------------------
 
-def train_config(tmp: str, impl: str) -> dict:
-    """LightGCN at its published width on the sparse graph, 2 epochs of
-    the default 2,048-pair batches, validation after each epoch; each
-    impl checkpoints into its own directory."""
-    ck = os.path.join(tmp, impl)
+def path_epochs(model: str, impl: str) -> int:
+    return EPOCHS.get((model, impl), 1)
+
+
+def train_config(tmp: str, impl: str, model: str = "LightGCN") -> dict:
+    """The model at LightGCN's published width on the sparse graph,
+    ``path_epochs`` epochs of the default 2,048-pair batches, validation
+    after each epoch; each (model, impl) checkpoints into its own
+    directory."""
+    ck = os.path.join(tmp, f"{model}-{impl}")
     return {"data_path": tmp, "checkpoint_dir": ck,
             "embedding_size": EMBEDDING_SIZE, "n_layers": N_LAYERS,
             "enable_sparse": True, "sparse_spmm_impl": impl,
-            "epochs": EPOCHS, "eval_step": 1, "seed": SEED,
-            "state": "ERROR", "save_dataset": True,
+            "epochs": path_epochs(model, impl), "eval_step": 1,
+            "seed": SEED, "state": "ERROR", "save_dataset": True,
             "metrics_log_path": os.path.join(ck, "train.jsonl")}
 
 
-def expected_train_counts(impl: str, steps: int, n_evals: int) -> dict:
-    """pallas: K1 per layer per step and per evaluation, K1ᵀ per layer
-    per step; xla: D2 and D1 once per layer in each forward (steps and
-    evaluations) and once per layer in each backward."""
-    fwd = N_LAYERS * (EPOCHS * steps + n_evals)
-    bwd = N_LAYERS * EPOCHS * steps
+def expected_train_counts(impl: str, steps: int, n_evals: int,
+                          model: str = "LightGCN") -> dict:
+    """Per step the model's propagations, each N_LAYERS SpMMs forward and
+    N_LAYERS transpose SpMMs back, and N_LAYERS forward per evaluation.
+    ell: K2 forward, K2ᵀ back; pallas: K1 forward, K1ᵀ back; xla: D2
+    and D1 once per layer in each forward and each backward."""
+    prop = N_LAYERS * PROPAGATIONS[model] * path_epochs(model, impl) * steps
+    fwd, bwd = prop + N_LAYERS * n_evals, prop
+    want = {k: 0 for k in counters()}
     if impl == "pallas":
-        return {"segment_spmm": fwd, "segment_spmm_transpose": bwd,
-                "row_gather": 0, "block_segment_sum": 0}
-    return {"segment_spmm": 0, "segment_spmm_transpose": 0,
-            "row_gather": fwd + bwd, "block_segment_sum": fwd + bwd}
+        want.update(segment_spmm=fwd, segment_spmm_transpose=bwd)
+    elif impl == "ell":
+        want.update(ell_spmm=fwd, ell_spmm_transpose=bwd)
+    else:
+        want.update(row_gather=fwd + bwd, block_segment_sum=fwd + bwd)
+    return want
 
 
 def check_metrics(name: str, result: dict):
@@ -616,9 +731,11 @@ def step_vs_plain(model, params: dict, batch: dict, impl: str) -> dict:
         torch.cuda.synchronize()
         return loss.detach(), grads
 
-    want = ({"segment_spmm": N_LAYERS, "segment_spmm_transpose": N_LAYERS}
-            if impl == "pallas" else
-            {"row_gather": 2 * N_LAYERS, "block_segment_sum": 2 * N_LAYERS})
+    want = {"pallas": {"segment_spmm": N_LAYERS,
+                       "segment_spmm_transpose": N_LAYERS},
+            "ell": {"ell_spmm": N_LAYERS, "ell_spmm_transpose": N_LAYERS},
+            "xla": {"row_gather": 2 * N_LAYERS,
+                    "block_segment_sum": 2 * N_LAYERS}}[impl]
     reset_counts()
     k_loss, k_grads = loss_and_grads()
     got = {k: v for k, v in read_counts().items() if v}
@@ -652,10 +769,11 @@ def step_vs_plain(model, params: dict, batch: dict, impl: str) -> dict:
     return out
 
 
-def train_path(tmp: str, impl: str, dev) -> dict:
+def train_path(tmp: str, impl: str, dev, model_name: str = "LightGCN"
+               ) -> dict:
     """Train through ``run_recbole_gnn_tpu`` with every counter set to 0
-    just before and read just after; check the run; time its steps, an
-    evaluation, and one step against the plain version."""
+    just before and read just after; check the run; time its steps and
+    an evaluation; for LightGCN, one step against the plain version."""
     from recbole_gnn_tpu_torch.config import Config
     from recbole_gnn_tpu_torch.eval.evaluator import to_device
     from recbole_gnn_tpu_torch.models import get_model
@@ -665,11 +783,13 @@ def train_path(tmp: str, impl: str, dev) -> dict:
     from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
                                                        params_from_numpy)
     from recbole_gnn_tpu_torch.train.trainer import Trainer
-    cd = train_config(tmp, impl)
+    cd = train_config(tmp, impl, model_name)
+    epochs = cd["epochs"]
+    tag = impl if model_name == "LightGCN" else f"{model_name} {impl}"
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    res = run_recbole_gnn_tpu(model="LightGCN", dataset="gowalla_shape",
+    res = run_recbole_gnn_tpu(model=model_name, dataset="gowalla_shape",
                               config_dict=cd, saved=True, verbose=False)
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -677,57 +797,59 @@ def train_path(tmp: str, impl: str, dev) -> dict:
     with open(cd["metrics_log_path"]) as f:
         events = [json.loads(line) for line in f]
 
-    config = Config(model="LightGCN", dataset="gowalla_shape",
+    config = Config(model=model_name, dataset="gowalla_shape",
                     config_dict=cd)
     (train_loader, train_ds), (valid_loader, _), _ = data_preparation(
         config, create_dataset(config))
-    model = get_model("LightGCN")(config, train_ds, dev)
+    model = get_model(model_name)(config, train_ds, dev)
     graph = model.consts["graph"]
     steps = len(train_loader)
-    epochs = [e for e in events if e["event"] == "train_epoch"]
+    epoch_events = [e for e in events if e["event"] == "train_epoch"]
     valids = [e for e in events if e["event"] == "valid"]
-    losses = [e["loss"] for e in epochs]
-    log(f"[{impl}] train: {graph.n_nodes} nodes, {graph.nnz} edges (e_pad "
+    losses = [e["loss"] for e in epoch_events]
+    log(f"[{tag}] train: {graph.n_nodes} nodes, {graph.nnz} edges (e_pad "
         f"{graph.n_edges_padded}); {steps} steps per epoch of "
-        f"{train_loader.batch_size} pairs; {len(epochs)} epochs in "
+        f"{train_loader.batch_size} pairs; {epochs} epochs in "
         f"{wall:.1f} s end to end")
-    for e in epochs:
-        log(f"[{impl}] train epoch {e['epoch']}: loss {e['loss']:.6f}, "
+    for e in epoch_events:
+        log(f"[{tag}] train epoch {e['epoch']}: loss {e['loss']:.6f}, "
             f"{e['seconds']:.3f} s, {e['examples_per_s']:.0f} examples/s")
     for e in valids:
-        log(f"[{impl}] valid epoch {e['epoch']}: {e['seconds']:.3f} s, "
+        log(f"[{tag}] valid epoch {e['epoch']}: {e['seconds']:.3f} s, "
             f"recall@10 {e['recall@10']:.5f}, ndcg@10 {e['ndcg@10']:.5f}")
-    log(f"[{impl}] test: {res['test_result']}")
-    if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"[{impl}] training losses: {losses}")
-    if not losses[1] < losses[0]:
-        raise AssertionError(f"[{impl}] loss did not fall: {losses}")
+    log(f"[{tag}] test: {res['test_result']}")
+    if len(losses) != epochs or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[{tag}] training losses: {losses}")
+    if epochs > 1 and not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] loss did not fall: {losses}")
     for e in valids:
-        check_metrics(f"[{impl}] valid epoch {e['epoch']}",
+        check_metrics(f"[{tag}] valid epoch {e['epoch']}",
                       {k: v for k, v in e.items() if "@" in k})
-    check_metrics(f"[{impl}] test", res["test_result"])
+    check_metrics(f"[{tag}] test", res["test_result"])
     if not res["test_result"]["recall@10"] > 0:
-        raise AssertionError(f"[{impl}] test recall@10 is 0")
+        raise AssertionError(f"[{tag}] test recall@10 is 0")
     n_evals = len(valids) + 1
-    want = expected_train_counts(impl, steps, n_evals)
-    log(f"[{impl}] train launches: {counts} (expected {want}: "
-        f"{N_LAYERS} layers x ({EPOCHS} x {steps} steps forward and back "
-        f"+ {n_evals} evaluations forward))")
+    want = expected_train_counts(impl, steps, n_evals, model_name)
+    log(f"[{tag}] train launches: {counts} (expected {want}: "
+        f"{N_LAYERS} layers x ({PROPAGATIONS[model_name]} propagations x "
+        f"{epochs} x {steps} steps forward and back + {n_evals} "
+        "evaluations forward))")
     if counts != want:
-        raise AssertionError(f"[{impl}] training launch counts differ")
-    log(f"[{impl}] train peak device memory (max_memory_allocated): "
+        raise AssertionError(f"[{tag}] training launch counts differ")
+    log(f"[{tag}] train peak device memory (max_memory_allocated): "
         f"{peak_bytes} bytes ({peak_bytes / 2**30:.3f} GiB)")
 
-    ckpt = os.path.join(cd["checkpoint_dir"], "LightGCN-gowalla_shape.ckpt")
+    ckpt = os.path.join(cd["checkpoint_dir"],
+                        f"{model_name}-gowalla_shape.ckpt")
     state = load_checkpoint(ckpt)
     trainer = Trainer(config, model)
     it = iter(train_loader)
     host_batches = [next(it) for _ in range(5 + TIMED_STEPS + 10)]
     step_ms, prof = time_train_steps(trainer, model, state, host_batches, dev)
-    log(f"[{impl}] train step (host clock, synchronised, {TIMED_STEPS} "
+    log(f"[{tag}] train step (host clock, synchronised, {TIMED_STEPS} "
         f"steps after 5 warm-up): median {np.median(step_ms):.3f} ms, min "
         f"{min(step_ms):.3f}, max {max(step_ms):.3f}")
-    log(f"[{impl}] train step profile (torch.profiler, 10 steps): "
+    log(f"[{tag}] train step profile (torch.profiler, 10 steps): "
         + (json.dumps(prof) if prof else "not measured (no device "
            "activity recorded)"))
     params = params_from_numpy(state["params"], dev)
@@ -735,7 +857,7 @@ def train_path(tmp: str, impl: str, dev) -> dict:
     t0 = time.perf_counter()
     result = trainer.evaluator.evaluate(params, {}, valid_loader)
     eval_s = time.perf_counter() - t0
-    log(f"[{impl}] full-sort evaluation of {len(valid_loader.eval_users)} "
+    log(f"[{tag}] full-sort evaluation of {len(valid_loader.eval_users)} "
         f"valid users x {model.n_items} items (host clock): {eval_s:.3f} s")
     # the checkpoint holds the best epoch's params: re-evaluating them
     # gives that epoch's validation result
@@ -743,12 +865,13 @@ def train_path(tmp: str, impl: str, dev) -> dict:
     for k, v in result.items():
         if not abs(v - best[k]) <= 1e-6:
             raise AssertionError(
-                f"[{impl}] re-evaluation of the checkpoint: {k} {v} "
+                f"[{tag}] re-evaluation of the checkpoint: {k} {v} "
                 f"differs from its epoch's validation {best[k]}")
-    batch = to_device(next(iter(train_loader)), dev)
-    step_err = step_vs_plain(model, params, batch, impl)
-    log(f"[{impl}] step vs plain: " + ", ".join(
-        f"{k} {v:.6e}" for k, v in step_err.items()))
+    if model_name == "LightGCN":
+        batch = to_device(next(iter(train_loader)), dev)
+        step_err = step_vs_plain(model, params, batch, impl)
+        log(f"[{tag}] step vs plain: " + ", ".join(
+            f"{k} {v:.6e}" for k, v in step_err.items()))
     return {"config": config, "ckpt": ckpt, "model": model, "graph": graph,
             "params": params, "steps": steps, "counts": counts}
 
@@ -795,8 +918,8 @@ def serve_path(run: dict, tmp: str, impl: str, dev,
     log(f"[{impl}] recommend latency (ms, median of 5, k=10): "
         + ", ".join(f"B={b}: {ms:.2f}" for b, ms in latency.items()))
     log(f"[{impl}] http: {len(out['items'])} users answered")
-    fwd = ("segment_spmm",) if impl == "pallas" else ("row_gather",
-                                                      "block_segment_sum")
+    fwd = {"pallas": ("segment_spmm",), "ell": ("ell_spmm",),
+           "xla": ("row_gather", "block_segment_sum")}[impl]
     want = {k: (N_LAYERS if k in fwd else 0) for k in counts}
     if export_counts != want or counts != want:
         raise AssertionError(
@@ -832,9 +955,12 @@ def main() -> int:
     from recbole_gnn_tpu_torch.diag.timing import (bound_by, bound_ms,
                                                    host_us_per_call)
     from recbole_gnn_tpu_torch.ops import cuda_build
+    from recbole_gnn_tpu_torch.ops.ell_spmm import (
+        ell_spmm, ell_spmm_plain, ell_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.gather import row_gather, row_gather_plain
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
-        SHARE_EDGES, segment_spmm, segment_spmm_transpose, spmm_coo)
+        SHARE_EDGES, segment_spmm, segment_spmm_plain, segment_spmm_transpose,
+        spmm_coo)
     from recbole_gnn_tpu_torch.ops.segment_sum import (
         SHARE_EDGES as D1_SHARE_EDGES, block_segment_sum,
         block_segment_sum_plain)
@@ -869,14 +995,23 @@ def main() -> int:
         write_gowalla_shape(tmp, "gowalla_shape", SEED, **GOWALLA_SHAPE)
         log(f"data written ({time.perf_counter() - t0:.1f} s)")
 
-        # 4. the paths, each with the counters at 0 before it
+        # 4. the paths, each with the counters at 0 before it: the
+        # default impl first
+        ell = train_path(tmp, "ell", dev)
+        paths["ell_train"] = ell["counts"]
+        paths["ell_serve"] = serve_path(ell, tmp, "ell", dev)
         pallas = train_path(tmp, "pallas", dev)
         paths["pallas_train"] = pallas["counts"]
-        paths["pallas_serve"] = serve_path(pallas, tmp, "pallas", dev)
+        paths["pallas_serve"] = serve_path(pallas, tmp, "pallas", dev,
+                                           batches=(1, 64))
         xla = train_path(tmp, "xla", dev)
         paths["xla_train"] = xla["counts"]
         paths["xla_serve"] = serve_path(xla, tmp, "xla", dev,
                                         batches=(1, 64))
+        for model_name in ("SimGCL", "XSimGCL"):
+            run = train_path(tmp, "ell", dev, model_name)
+            paths[f"{model_name.lower()}_train"] = run["counts"]
+            del run
         reset_counts()
         probe1 = pallas_floor.run("cuda")
         probe2 = d2.run("cuda")
@@ -898,6 +1033,12 @@ def main() -> int:
                               generator=gen)
             max_err, max_err_t = check_kernels("slice", graph, x, cot)
             xla_err = check_xla_kernels("slice", graph, x, cot)
+            mode_err = check_k1_modes("slice", graph, x, cot)
+            # K2 on the ell run's graph and trained params
+            eg = ell["graph"]
+            xe = torch.cat([ell["params"]["user_emb"],
+                            ell["params"]["item_emb"]]).contiguous()
+            k2_err, k2_err_t = check_ell("slice", eg, xe, cot)
             # the share passes and the carry passes sum in a fixed order
             raw = row_gather(x, graph.src)      # D1's input on the xla path
             for kind, rerun in (
@@ -909,16 +1050,21 @@ def main() -> int:
                         graph.rev_rowptr, cot)),
                     ("D1", lambda: block_segment_sum(
                         raw, graph.dst, graph.rowptr, "f32",
-                        weight=graph.weight))):
+                        weight=graph.weight))) + tuple(
+                    (f"K1 {p}", lambda p=p: segment_spmm(
+                        graph.src, graph.dst, graph.weight, graph.rowptr, x,
+                        p)) for p in K1_MODES):
                 if not torch.equal(rerun(), rerun()):
                     raise AssertionError(f"{kind} reruns at the slice shape "
                                          "differ")
-            log("determinism: two launches each of K1, K1T and D1 (f32, "
-                "weighted) at the slice shape equal bit for bit")
+            log("determinism: two launches each of K1, K1T, D1 (f32, "
+                f"weighted) and K1 in {'/'.join(K1_MODES)} at the slice "
+                "shape equal bit for bit (K2, K2T: check_ell)")
             case_rng = np.random.default_rng(SEED + 1)
             for name, s, d_, w, n_dst, n_src, dim in edge_case_graphs(case_rng):
                 g = build_graph(s, d_, w, n_dst, n_src, device=dev,
-                                with_pallas=True, with_reverse=True)
+                                with_pallas=True, with_reverse=True,
+                                impl="ell")
                 xc = torch.from_numpy(case_rng.normal(
                     size=(n_src, dim)).astype(np.float32)).to(dev)
                 gc = torch.from_numpy(case_rng.normal(
@@ -936,6 +1082,10 @@ def main() -> int:
                          else (None,))
                 check_kernels(name, g, xc, gc, sizes)
                 errs = check_xla_kernels(name, g, xc, gc, share_sizes=sizes)
+                e2 = check_ell(name, g, xc, gc)
+                k2_err, k2_err_t = max(k2_err, e2[0]), max(k2_err_t, e2[1])
+                for p, v in check_k1_modes(name, g, xc, gc).items():
+                    mode_err[p] = max(mode_err[p], v)
                 if name in ("hub_rows", "rectangular", "multi_segment"):
                     errs = check_xla_kernels(f"{name} chunk={CHUNK}", g, xc,
                                              gc, chunk=CHUNK)
@@ -978,6 +1128,57 @@ def main() -> int:
                 graph.rev_src, graph.rev_dst, graph.rev_weight, cot,
                 graph.n_src_nodes)).abs().max())
             library_t_ms = time_cuda_ms(lambda: torch.sparse.mm(csr_t, cot))
+            # K1 in its other precisions, same graph and input
+            k1_modes = {p: {
+                "ms": time_cuda_ms(lambda p=p: segment_spmm(
+                    graph.src, graph.dst, graph.weight, graph.rowptr, x, p)),
+                "plain_ms": time_cuda_ms(lambda p=p: segment_spmm_plain(
+                    graph.src, graph.dst, graph.weight, x, n, p))}
+                for p in K1_MODES}
+            # K2 and K2T on the ell run's graph: beside the plain version,
+            # torch.sparse.mm of the same CSR and K1 on the same graph
+            # and input; device kernels per call from the profiler
+            e_nnz = eg.nnz
+            k2 = {}
+            for kind, meta, inp, run, lib, k1_run in (
+                    ("K2", eg.ell, xe, lambda: ell_spmm(eg.ell, xe),
+                     sorted_csr(eg.dst[:e_nnz], eg.src[:e_nnz],
+                                eg.weight[:e_nnz], eg.n_nodes,
+                                eg.n_src_nodes),
+                     lambda: segment_spmm(eg.src, eg.dst, eg.weight,
+                                          eg.rowptr, xe)),
+                    ("K2T", eg.rev_ell, cot,
+                     lambda: ell_spmm_transpose(eg.rev_ell, cot),
+                     sorted_csr(eg.src[:e_nnz], eg.dst[:e_nnz],
+                                eg.weight[:e_nnz], eg.n_src_nodes,
+                                eg.n_nodes),
+                     lambda: segment_spmm_transpose(
+                         eg.rev_src, eg.rev_dst, eg.rev_weight,
+                         eg.rev_rowptr, cot))):
+                us = device_us_by_kernel(run)
+                # the row pass, and the combine pass: the slice has split
+                # nodes (the hub) and isolated ones (PAD ids 0)
+                if len(us) != 2:
+                    raise AssertionError(f"the profiler saw {us} per {kind} "
+                                         "call; expected 2 device kernels")
+                nb, fl = ell_bytes(meta, inp.shape[0], EMBEDDING_SIZE)
+                want = ell_spmm_plain(meta, inp)
+                k2[kind] = {
+                    "ms": time_cuda_ms(run),
+                    "plain_ms": time_cuda_ms(
+                        lambda: ell_spmm_plain(meta, inp)),
+                    "library_ms": time_cuda_ms(
+                        lambda: torch.sparse.mm(lib, inp)),
+                    "library_max_abs_err": float(
+                        (torch.sparse.mm(lib, inp) - want).abs().max()),
+                    "k1_ms": time_cuda_ms(k1_run),
+                    "device_us_by_kernel": us, "bytes": nb, "flops": fl,
+                    "bound_ms": bound_ms(nb, fl), "bound_by": bound_by(nb, fl),
+                    "host_us_per_call": host_us_per_call(run, dev),
+                    "gathered_tb_per_s": None}
+                k2[kind]["gathered_tb_per_s"] = (
+                    meta.e_padded * EMBEDDING_SIZE * 4 / k2[kind]["ms"] / 1e9)
+                del lib, want
             # the xla SpMM whole (D2, then D1 with the weight)
             xla_ms = time_cuda_ms(lambda: xla_spmm(
                 graph.src, graph.dst, graph.weight, graph.rowptr, x))
@@ -1106,6 +1307,28 @@ def main() -> int:
         f"bytes, {flops_t} flops); row gathers {gathered} bytes at "
         f"{gathered / kernel_t_ms / 1e9:.3f} TB/s; {N_LAYERS} launches "
         f"per step, {N_LAYERS * steps} per epoch")
+    log("segment_spmm (K1) precisions at the slice shape: " + "; ".join(
+        f"{p} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+        f"max_abs_err {mode_err[p]:.3e}" for p, r in k1_modes.items())
+        + f"; f32x2 kernel {kernel_ms:.4f} ms")
+    el = eg.ell
+    log(f"ell layout at the slice shape: {eg.nnz} edges, e_pad "
+        f"{el.e_padded} ({el.e_padded / eg.nnz:.3f}x), {el.n_vrows} virtual "
+        f"rows, buckets K={list(el.ks)} rows={list(el.rows)}, "
+        f"{el.n_multi} split nodes ({el.n_multi_vrows} virtual rows); "
+        f"transpose e_pad {eg.rev_ell.e_padded}, K={list(eg.rev_ell.ks)}")
+    for kind, r in k2.items():
+        log(f"ell_spmm ({kind}) at the slice shape: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, torch.sparse.mm "
+            f"{r['library_ms']:.4f} ms (max_abs_err vs plain "
+            f"{r['library_max_abs_err']:.3e}), K1 on the same graph "
+            f"{r['k1_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bytes']} bytes, {r['flops']} flops; "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound), row gathers at "
+            f"{r['gathered_tb_per_s']:.3f} TB/s, device us per call "
+            f"(torch.profiler, 20 calls, L2 warm) "
+            f"{json.dumps(r['device_us_by_kernel'])}, host us per call "
+            f"{r['host_us_per_call']:.1f}")
     d2_bound = bound_ms(d2_bytes, d2_flops)
     d1_bound = bound_ms(d1_bytes, d1_flops)
     log(f"xla SpMM (D2, then D1 with the weight) at the slice shape: forward "
@@ -1137,6 +1360,23 @@ def main() -> int:
     def by_path(k):
         return {p: c[k] for p, c in paths.items()}
 
+    def k2_entry(kind, name, replaces, fn_name, launches):
+        r = k2[kind]
+        return {"name": name, "route": "cuda",
+                "source": "recbole_gnn_tpu_torch/csrc/ell_spmm.cu",
+                "replaces": replaces, "replaces_function": fn_name,
+                "launches": launches, "launches_by_path": by_path(name),
+                "max_abs_err": k2_err if kind == "K2" else k2_err_t,
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "library": "torch.sparse.mm",
+                "k1_ms_same_graph": r["k1_ms"],
+                "device_kernels_per_call": len(r["device_us_by_kernel"]),
+                "device_us_by_kernel": r["device_us_by_kernel"],
+                "host_us_per_call": r["host_us_per_call"],
+                "gathered_tb_per_s": r["gathered_tb_per_s"]}
+
+    ell_paths = ("ell_train", "ell_serve", "simgcl_train", "xsimgcl_train")
     print(json.dumps({"kernels": [
         {"name": "segment_spmm", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
@@ -1150,7 +1390,10 @@ def main() -> int:
          "library_ms": library_ms, "device_kernels_per_call": per_call,
          "device_us_by_kernel": split_us,
          "host_us_per_call": host_us["segment_spmm"],
-         "gathered_tb_per_s": gathered / kernel_ms / 1e9},
+         "gathered_tb_per_s": gathered / kernel_ms / 1e9,
+         "modes_ms": {p: r["ms"] for p, r in k1_modes.items()},
+         "modes_plain_ms": {p: r["plain_ms"] for p, r in k1_modes.items()},
+         "modes_max_abs_err": mode_err},
         {"name": "segment_spmm_transpose", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
          "replaces": "recbole_gnn_tpu/ops/spmm.py:339",
@@ -1197,6 +1440,13 @@ def main() -> int:
          "probe_shape": {"bound_ms": probe1["bound_ms"],
                          "library_ms": probe1["library_ms"],
                          "modes": probe1["modes"]}},
+        k2_entry("K2", "ell_spmm", "recbole_gnn_tpu/ops/ell_spmm.py:325",
+                 "ell_spmm / bucket_gather_sum / _bucket_sum (an XLA "
+                 "composition, no pallas_call)",
+                 sum(paths[p]["ell_spmm"] for p in ell_paths)),
+        k2_entry("K2T", "ell_spmm_transpose", "recbole_gnn_tpu/ops/spmm.py:336",
+                 "_spmm_core_bwd (ell_spmm over rev_ell)",
+                 sum(paths[p]["ell_spmm_transpose"] for p in ell_paths)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -136,6 +136,14 @@ class Config:
         v = self._data.get(key)
         return default if v is None else v
 
+    def or_default(self, key, default):
+        """The value of ``key``, or ``default`` where it is missing,
+        empty or zero: the JAX package's read of the keys whose falsy
+        value means "use the default" (``metrics``, ``learning_rate``,
+        ``valid_metric``, ``learner``, ``eval_step``); :meth:`get` keeps
+        a falsy value."""
+        return self._data.get(key) or default
+
     def __setitem__(self, key, value):
         self._data[key] = _coerce(value)
 

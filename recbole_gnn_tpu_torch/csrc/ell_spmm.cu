@@ -1,0 +1,332 @@
+// Bucketed-ELL SpMM, for NVIDIA Hopper (sm_90a).
+//
+//   out[n, :] = sum over the slots s of node n's virtual rows of
+//               w[s] * x[idx[s], :]
+//
+// Replaces recbole_gnn_tpu/ops/ell_spmm.py::ell_spmm (bucket_gather_sum /
+// _bucket_sum), the JAX package's default sparse SpMM
+// (sparse_spmm_impl: ell).  That is an XLA composition, not a Pallas
+// kernel: per bucket an (n_b * K_b, D) row gather into HBM and an einsum
+// over the slot axis, then a segment sum over the virtual rows of split
+// nodes and one gather of the pooled bucket outputs through node_src.
+// This kernel reads the same host-built layout (ops/ell_spmm.py's
+// build_ell, the JAX numpy code copied) and makes none of those
+// intermediates: the messages w * x[idx] are summed in registers.
+//
+// What bounds it on H100: memory.  Per slot it reads a 4-byte index, a
+// 4-byte weight and one D-float row of x, for 2*D flops.  The DRAM
+// traffic the work needs is x read once, out written once and the
+// slots' index and weight; the E_pad*D*4 bytes of row gathers are served
+// mostly by the 50 MB L2 at the LightGCN slice shape (x is 18 MB), as in
+// K1 (csrc/segment_spmm.cu).
+//
+// Schedule.  Two kernels on the caller's stream, no more:
+//   1. the row pass walks every virtual row of every bucket in ONE
+//      launch.  A bucket table passed by value (at most 32 buckets)
+//      gives each bucket its width K, row count, first slot, first
+//      virtual row and first block; a block finds its bucket by a scan
+//      of that table.  The blocks of the widest buckets get the lowest
+//      indices, so the longest blocks start first.  A lane group of L
+//      lanes (L*VEC columns at a time; D wider than 32*VEC takes
+//      several passes) owns rpg = max(1, 64 / K) consecutive rows of one
+//      bucket: the rows are fixed-length, so every group has the same
+//      work and needs no carry.  Narrow buckets (K = 4, 8) pack several
+//      rows into each group, and at D = 64 two 16-lane groups share a
+//      warp.  The group loads L slots' indices and weights at once, one
+//      per lane (the next L are loaded before the current ones are
+//      used), passes them round by shuffles and keeps kUnroll row
+//      gathers in flight.  A finished row goes to its node's output row
+//      when the node has one virtual row (vdst >= 0), else to row
+//      -(1 + vdst) of a workspace that the wrapper allocates (one
+//      D-float row per virtual row of a split node).
+//   2. the combine pass writes the rest of the nodes, one lane group
+//      each: a split node (degree above K_CAP) as the sum of its
+//      workspace rows in row order, an isolated node (PAD ids 0 among
+//      them) as 0.  It is not launched when there are no such nodes.
+// Each row is summed in slot order in f32 (fused multiply-adds); no
+// value is added atomically, so reruns repeat bit for bit.  A pad slot
+// (source row 0, weight 0) is not skipped: it is gathered and added
+// like any other slot, so a non-finite x[0] spreads as it does in the
+// plain version, and the loop has no branch on the weight.
+//
+// Hopper features: none beyond vector loads and warp shuffles.  The
+// indices are loaded by the group's lanes together and broadcast by
+// shuffles instead of staged in shared memory: a group's slots are
+// contiguous, so the load is coalesced, and the next batch is in flight
+// while the current one is gathered.  TMA and clusters have no work in
+// a kernel whose every byte is a row gather at a data-dependent address.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;      // threads per block (both passes)
+constexpr int kUnroll = 8;         // row gathers in flight per lane group
+constexpr int kGroupSlots = 64;    // slots per lane group in narrow buckets
+constexpr int kMaxBuckets = 32;
+
+struct Buckets {
+  int n;
+  int k[kMaxBuckets];                   // slots per virtual row
+  int rpg[kMaxBuckets];                 // rows per lane group
+  long long rows[kMaxBuckets];          // virtual rows
+  long long slot0[kMaxBuckets];         // first slot
+  long long vrow0[kMaxBuckets];         // first virtual row
+  long long block0[kMaxBuckets];        // first block
+  long long blocks[kMaxBuckets];        // blocks
+};
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> {
+  __device__ static void load(float* v, const float* p) { v[0] = __ldg(p); }
+  __device__ static void store(float* p, const float* a) { p[0] = a[0]; }
+};
+template <>
+struct Vec<2> {
+  __device__ static void load(float* v, const float* p) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  }
+  __device__ static void store(float* p, const float* a) {
+    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+  }
+};
+template <>
+struct Vec<4> {
+  __device__ static void load(float* v, const float* p) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  }
+  __device__ static void store(float* p, const float* a) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  }
+};
+
+__device__ __forceinline__ unsigned group_mask(int L) {
+  const int lane = threadIdx.x & 31;
+  return L == 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane / L * L);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+ell_row_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
+               const float* __restrict__ w, const int32_t* __restrict__ vdst,
+               float* __restrict__ out, float* __restrict__ ws,
+               const Buckets bk, int d, int L) {
+  int b = 0;  // the bucket whose blocks hold this one
+  while (b + 1 < bk.n && !((long long)blockIdx.x >= bk.block0[b] &&
+                           (long long)blockIdx.x < bk.block0[b] + bk.blocks[b]))
+    ++b;
+  const int K = bk.k[b];
+  const int rpg = bk.rpg[b];
+  const int groups = kThreads / L;
+  const int group = threadIdx.x / L;
+  const int sub = threadIdx.x % L;
+  const long long r0 =
+      ((long long)blockIdx.x - bk.block0[b]) * groups * rpg +
+      (long long)group * rpg;
+  if (r0 >= bk.rows[b]) return;  // group-uniform
+  const long long r1 = min(r0 + rpg, bk.rows[b]);
+  const long long a = bk.slot0[b] + r0 * K;    // the group's first slot
+  const int n = (int)((r1 - r0) * K);          // its slots (<= 256)
+  const unsigned gmask = group_mask(L);
+  const int32_t* rdst = vdst + bk.vrow0[b] + r0;
+
+  for (int c0 = 0; c0 < d; c0 += L * VEC) {
+    const int col = c0 + sub * VEC;
+    const bool active = col < d;  // d % VEC == 0: the whole vector is in
+    float acc[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+    int row = 0;       // the group's row being summed
+    int left = K;      // its slots still to add
+    int32_t ci = sub < n ? __ldg(idx + a + sub) : 0;
+    float cw = sub < n ? __ldg(w + a + sub) : 0.f;
+    for (int e0 = 0; e0 < n; e0 += L) {
+      const int m = min(L, n - e0);
+      // the next L slots, in flight while these are gathered
+      const int nx = e0 + L + sub;
+      const int32_t ni = nx < n ? __ldg(idx + a + nx) : 0;
+      const float nw = nx < n ? __ldg(w + a + nx) : 0.f;
+      for (int u0 = 0; u0 < m; u0 += kUnroll) {
+        float v[kUnroll][VEC];
+        float wt[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int s = __shfl_sync(gmask, ci, (u0 + u) % L, L);
+          wt[u] = __shfl_sync(gmask, cw, (u0 + u) % L, L);
+          if (active && u0 + u < m) {
+            Vec<VEC>::load(v[u], x + (long long)s * d + col);
+          } else {
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) v[u][q] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (u0 + u < m) {  // group-uniform
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) acc[q] += wt[u] * v[u][q];
+            if (--left == 0) {  // the row is complete
+              const int t = __ldg(rdst + row);
+              float* o = t >= 0 ? out + (long long)t * d
+                                : ws + (long long)(-1 - t) * d;
+              if (active) Vec<VEC>::store(o + col, acc);
+#pragma unroll
+              for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+              ++row;
+              left = K;
+            }
+          }
+        }
+      }
+      ci = ni;
+      cw = nw;
+    }
+  }
+}
+
+// each remaining node once: the sum of its workspace rows in row order
+// (a split node), or 0 (an isolated node: no rows)
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+ell_combine_kernel(const float* __restrict__ ws,
+                   const int32_t* __restrict__ rest_node,
+                   const int32_t* __restrict__ rest_start,
+                   const int32_t* __restrict__ rest_count,
+                   float* __restrict__ out, long long n_rest, int d, int L) {
+  const long long j =
+      (long long)blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  if (j >= n_rest) return;
+  const int sub = threadIdx.x % L;
+  const long long node = rest_node[j];
+  const float* p = ws + (long long)rest_start[j] * d;
+  const int cnt = rest_count[j];
+  for (int c0 = 0; c0 < d; c0 += L * VEC) {
+    const int col = c0 + sub * VEC;
+    if (col >= d) break;
+    float acc[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+    int r = 0;
+    for (; r + 4 <= cnt; r += 4) {  // 4 loads issued together, added in order
+      float v[4][VEC];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        Vec<VEC>::load(v[u], p + (long long)(r + u) * d + col);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) acc[q] += v[u][q];
+    }
+    for (; r < cnt; ++r) {
+      float v[VEC];
+      Vec<VEC>::load(v, p + (long long)r * d + col);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[q] += v[q];
+    }
+    Vec<VEC>::store(out + node * d + col, acc);
+  }
+}
+
+int lanes_for(int d, int vec) {
+  const int need = (d + vec - 1) / vec;
+  int L = 1;
+  while (L < need && L < 32) L <<= 1;
+  return L;
+}
+
+template <int VEC>
+int launch(const float* x, const int32_t* idx, const float* w,
+           const int32_t* vdst, float* out, float* ws,
+           const int32_t* rest_node, const int32_t* rest_start,
+           const int32_t* rest_count, long long n_rest, const Buckets& bk,
+           long long n_blocks, int d, int L, cudaStream_t st) {
+  if (n_blocks > 0) {
+    ell_row_kernel<VEC><<<(unsigned)n_blocks, kThreads, 0, st>>>(
+        x, idx, w, vdst, out, ws, bk, d, L);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n_rest > 0) {
+    const long long per_block = kThreads / L;
+    const long long blocks = (n_rest + per_block - 1) / per_block;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    ell_combine_kernel<VEC><<<(unsigned)blocks, kThreads, 0, st>>>(
+        ws, rest_node, rest_start, rest_count, out, n_rest, d, L);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (n_in, d) f32; idx / w (E_pad,) int32 / f32, the buckets' slots one
+// bucket after another, each row-major (rows[b], ks[b]); vdst (n_vrows,)
+// int32; out (n_nodes, d) f32; ws (>= the split nodes' virtual rows, d)
+// f32 scratch; rest_node / rest_start / rest_count (n_rest,) int32.  ks
+// and rows are HOST arrays of n_buckets (<= 32) entries.  vec: the float
+// width of the x/out/ws accesses (1, 2 or 4; d % vec == 0, x aligned to
+// 4 * vec bytes).  Launches the row pass and, if n_rest > 0, the combine
+// pass on `stream`; returns a cudaError_t.
+extern "C" int ell_spmm_f32(const void* x, const void* idx, const void* w,
+                            const void* vdst, void* out, void* ws,
+                            const void* rest_node, const void* rest_start,
+                            const void* rest_count, long long n_rest,
+                            const long long* ks, const long long* rows,
+                            int n_buckets, int d, int vec, void* stream) {
+  if (n_buckets < 0 || n_buckets > kMaxBuckets || n_rest < 0 || d <= 0 ||
+      (vec != 1 && vec != 2 && vec != 4) || d % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  const int L = lanes_for(d, vec);
+  const long long groups = kThreads / L;
+  Buckets bk;
+  bk.n = n_buckets;
+  long long slot = 0, vrow = 0;
+  for (int b = 0; b < n_buckets; ++b) {
+    if (ks[b] <= 0 || ks[b] > 4096 || rows[b] < 0)
+      return (int)cudaErrorInvalidValue;
+    bk.k[b] = (int)ks[b];
+    bk.rpg[b] = ks[b] >= kGroupSlots ? 1 : (int)(kGroupSlots / ks[b]);
+    bk.rows[b] = rows[b];
+    bk.slot0[b] = slot;
+    bk.vrow0[b] = vrow;
+    bk.blocks[b] = (rows[b] + groups * bk.rpg[b] - 1) / (groups * bk.rpg[b]);
+    slot += rows[b] * ks[b];
+    vrow += rows[b];
+  }
+  // the widest buckets' blocks first: the longest blocks start first
+  long long n_blocks = 0;
+  for (int b = n_buckets - 1; b >= 0; --b) {
+    bk.block0[b] = n_blocks;
+    n_blocks += bk.blocks[b];
+  }
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  const int32_t* ip = static_cast<const int32_t*>(idx);
+  const float* wp = static_cast<const float*>(w);
+  const int32_t* vp = static_cast<const int32_t*>(vdst);
+  float* op = static_cast<float*>(out);
+  float* sp = static_cast<float*>(ws);
+  const int32_t* rn = static_cast<const int32_t*>(rest_node);
+  const int32_t* rs = static_cast<const int32_t*>(rest_start);
+  const int32_t* rc = static_cast<const int32_t*>(rest_count);
+  switch (vec) {
+    case 4:
+      return launch<4>(xp, ip, wp, vp, op, sp, rn, rs, rc, n_rest, bk,
+                       n_blocks, d, L, st);
+    case 2:
+      return launch<2>(xp, ip, wp, vp, op, sp, rn, rs, rc, n_rest, bk,
+                       n_blocks, d, L, st);
+    default:
+      return launch<1>(xp, ip, wp, vp, op, sp, rn, rs, rc, n_rest, bk,
+                       n_blocks, d, L, st);
+  }
+}

@@ -69,7 +69,22 @@
 // takes longer on a skewed graph than on a uniform one of the same
 // size; (3) dst is read (4 bytes per edge) to find row changes inside
 // a share, on top of what the bound counts.
+//
+// Precision modes (pallas_spmm_precision; the TPU kernel's `mode`,
+// pallas_spmm.py:275-288 and the hi/lo packing at :381-430).  A mode
+// changes only how an edge's term is formed from w and the x row; the
+// schedule, the carries and the bytes moved are the same:
+//   0 f32    (f32x2) the exact term w*x, summed in f32;
+//   1 bf16   the term rounded to bf16 (nearest even) after an f32
+//            product, bf16(w*x), summed in f32;
+//   2 packed x split into a truncated bf16 hi plane and a rounded bf16
+//            lo plane, lo = bf16(x - hi); per edge m = (hi + lo)*w in
+//            f32, split again into mh = trunc(m) and ml = bf16(m - mh);
+//            the mh and ml terms are summed apart in f32 and added
+//            where a row's (or a share's part of a row's) sum is
+//            written, so a split row's carries hold mh + ml sums.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,6 +96,7 @@ constexpr int kFixThreads = 256;  // threads per block of the carry pass
 constexpr int kCarryRows = 8;     // rows per lane group of the carry pass
 constexpr int kMaxSmem = 232448;  // what a block may use on H100
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kF32 = 0, kBf16 = 1, kPacked = 2;  // precision modes
 
 template <int VEC>
 struct Vec;
@@ -114,6 +130,48 @@ struct Vec<4> {
         make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
 };
+
+__device__ __forceinline__ float bf16_rn(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float bf16_trunc(float v) {
+  return __int_as_float(__float_as_int(v) & 0xffff0000);
+}
+
+// acc (and, in packed mode, lo) += the term of weight wt on x values v
+template <int MODE, int VEC>
+__device__ __forceinline__ void add_term(float* acc, float* lo, float wt,
+                                         const float* v) {
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    if constexpr (MODE == kF32) {
+      acc[k] += wt * v[k];
+    } else if constexpr (MODE == kBf16) {
+      acc[k] += bf16_rn(__fmul_rn(wt, v[k]));
+    } else {
+      const float xh = bf16_trunc(v[k]);
+      const float xl = bf16_rn(__fsub_rn(v[k], xh));
+      const float m = __fmul_rn(__fadd_rn(xh, xl), wt);
+      const float mh = bf16_trunc(m);
+      acc[k] += mh;
+      lo[k] += bf16_rn(__fsub_rn(m, mh));
+    }
+  }
+}
+
+// store a row's sum: acc, plus the lo plane in packed mode
+template <int MODE, int VEC>
+__device__ __forceinline__ void store_sum(float* p, const float* acc,
+                                          const float* lo) {
+  if constexpr (MODE == kPacked) {
+    float s[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) s[k] = acc[k] + lo[k];
+    Vec<VEC>::store(p, s);
+  } else {
+    Vec<VEC>::store(p, acc);
+  }
+}
 
 __device__ __forceinline__ void cp_async16(void* smem_dst,
                                            const void* gmem_src) {
@@ -154,7 +212,7 @@ __device__ __forceinline__ bool row_split(const int64_t* rowptr, int64_t r,
   return b1 > b0 && b0 / t != (b1 - 1) / t;
 }
 
-template <int VEC>
+template <int VEC, int MODE>
 __global__ void __launch_bounds__(kGroups * 32)
 share_sum_kernel(const float* __restrict__ x,
                  const int32_t* __restrict__ src,
@@ -214,9 +272,9 @@ share_sum_kernel(const float* __restrict__ x,
     const int col = c0 + sub * VEC;
     const bool active = col < d;  // d % VEC == 0: the whole vector is in
     int64_t cur = first;
-    float acc[VEC];
+    float acc[VEC], lo[VEC];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+    for (int k = 0; k < VEC; ++k) acc[k] = lo[k] = 0.f;
     for (int64_t e0 = a; e0 < b; e0 += kUnroll) {
       const int i0 = (int)(e0 - blk_a);
       const int n_here = (int)min64(kUnroll, b - e0);
@@ -238,14 +296,12 @@ share_sum_kernel(const float* __restrict__ x,
             float* o = cur == first && first_split ? slot0
                                                    : out + cur * d;
             if (active && (uint64_t)cur < (uint64_t)n_rows)
-              Vec<VEC>::store(o + col, acc);
+              store_sum<MODE, VEC>(o + col, acc, lo);
             cur = r;
 #pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+            for (int k = 0; k < VEC; ++k) acc[k] = lo[k] = 0.f;
           }
-          const float wt = s_w[i0 + u];
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[k] += wt * v[u][k];
+          add_term<MODE, VEC>(acc, lo, s_w[i0 + u], v[u]);
         }
       }
     }
@@ -256,7 +312,7 @@ share_sum_kernel(const float* __restrict__ x,
     else
       o = last_split ? slot1 : out + cur * d;
     if (active && (uint64_t)cur < (uint64_t)n_rows)
-      Vec<VEC>::store(o + col, acc);
+      store_sum<MODE, VEC>(o + col, acc, lo);
   }
 }
 
@@ -352,7 +408,7 @@ int lanes_for(int d, int vec) {
   return L;
 }
 
-template <int VEC>
+template <int VEC, int MODE>
 int launch(const float* xp, const int32_t* sp, const float* wp,
            const int32_t* dp, const int64_t* rp, float* op, float* cp,
            long long n_rows, long long n_edges, int d, int t, int L,
@@ -365,11 +421,11 @@ int launch(const float* xp, const int32_t* sp, const float* wp,
       return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          share_sum_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          share_sum_kernel<VEC, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    share_sum_kernel<VEC><<<(unsigned)blocks, kGroups * L, smem, st>>>(
+    share_sum_kernel<VEC, MODE><<<(unsigned)blocks, kGroups * L, smem, st>>>(
         xp, sp, wp, dp, rp, op, cp, n_rows, n_edges, d, t, L, aligned16);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -383,21 +439,42 @@ int launch(const float* xp, const int32_t* sp, const float* wp,
   return (int)cudaGetLastError();
 }
 
+template <int VEC>
+int launch_mode(int mode, const float* xp, const int32_t* sp,
+                const float* wp, const int32_t* dp, const int64_t* rp,
+                float* op, float* cp, long long n_rows, long long n_edges,
+                int d, int t, int L, int aligned16, cudaStream_t st) {
+  switch (mode) {
+    case kBf16:
+      return launch<VEC, kBf16>(xp, sp, wp, dp, rp, op, cp, n_rows, n_edges,
+                                d, t, L, aligned16, st);
+    case kPacked:
+      return launch<VEC, kPacked>(xp, sp, wp, dp, rp, op, cp, n_rows,
+                                  n_edges, d, t, L, aligned16, st);
+    default:
+      return launch<VEC, kF32>(xp, sp, wp, dp, rp, op, cp, n_rows, n_edges,
+                               d, t, L, aligned16, st);
+  }
+}
+
 }  // namespace
 
 // x (n_in, d) f32, src/dst (n_edges,) int32 with dst sorted, w
 // (n_edges,) f32, rowptr (n_rows + 1,) int64 the CSR row pointer of dst,
 // out (n_rows, d) f32, carry (ceil(n_edges / share_edges), 2, d) f32
 // scratch.  vec: the float width of the x/out/carry accesses (1, 2 or
-// 4; d % vec == 0, x aligned to 4 * vec bytes).  Launches the share pass
-// and the carry pass on `stream`; returns a cudaError_t.
+// 4; d % vec == 0, x aligned to 4 * vec bytes).  mode: 0 f32, 1 bf16,
+// 2 packed (the header).  Launches the share pass and the carry pass on
+// `stream`; returns a cudaError_t.
 extern "C" int segment_spmm_f32(const void* x, const void* src,
                                 const void* w, const void* dst,
                                 const void* rowptr, void* out, void* carry,
                                 long long n_rows, long long n_edges, int d,
-                                int vec, int share_edges, void* stream) {
+                                int vec, int share_edges, int mode,
+                                void* stream) {
   if (n_rows < 0 || n_edges < 0 || d <= 0 || share_edges <= 0 ||
-      (vec != 1 && vec != 2 && vec != 4) || d % vec != 0)
+      (vec != 1 && vec != 2 && vec != 4) || d % vec != 0 || mode < kF32 ||
+      mode > kPacked)
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
   const int L = lanes_for(d, vec);
@@ -413,13 +490,13 @@ extern "C" int segment_spmm_f32(const void* x, const void* src,
   float* cp = static_cast<float*>(carry);
   switch (vec) {
     case 4:
-      return launch<4>(xp, sp, wp, dp, rp, op, cp, n_rows, n_edges, d,
-                       share_edges, L, aligned16, st);
+      return launch_mode<4>(mode, xp, sp, wp, dp, rp, op, cp, n_rows,
+                            n_edges, d, share_edges, L, aligned16, st);
     case 2:
-      return launch<2>(xp, sp, wp, dp, rp, op, cp, n_rows, n_edges, d,
-                       share_edges, L, aligned16, st);
+      return launch_mode<2>(mode, xp, sp, wp, dp, rp, op, cp, n_rows,
+                            n_edges, d, share_edges, L, aligned16, st);
     default:
-      return launch<1>(xp, sp, wp, dp, rp, op, cp, n_rows, n_edges, d,
-                       share_edges, L, aligned16, st);
+      return launch_mode<1>(mode, xp, sp, wp, dp, rp, op, cp, n_rows,
+                            n_edges, d, share_edges, L, aligned16, st);
   }
 }

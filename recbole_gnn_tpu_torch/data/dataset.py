@@ -346,11 +346,14 @@ class GeneralGraphDataset(Dataset):
                 "graph_edge_sharding (edge-sharded ELL over a mesh) is not "
                 "ported yet (ROADMAP K7, Slice E parallelism)")
         with_pallas = self.config["use_pallas_spmm"] is not False
+        impl = str(self.config.get("sparse_spmm_impl", "ell"))
+        # the ELL layouts only for an ell graph (the JAX package builds
+        # them for every graph; nothing else reads them yet)
         return build_graph(src, dst, w, n, device=device,
-                           with_pallas=with_pallas,
-                           impl=str(self.config.get("sparse_spmm_impl", "ell")),
+                           with_pallas=with_pallas, impl=impl,
                            precision=str(self.config.get(
-                               "pallas_spmm_precision", "f32x2")))
+                               "pallas_spmm_precision", "f32x2")),
+                           with_ell=impl == "ell")
 
 
 __all__ = ["Dataset", "GeneralGraphDataset", "parse_interval"]

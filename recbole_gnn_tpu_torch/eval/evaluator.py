@@ -51,9 +51,8 @@ class Evaluator:
         self.device = model.device
         self.topk = tuple(config["topk"])
         self.max_k = max(self.topk)
-        self.metrics = tuple(m.lower() for m in (
-            config.get("metrics", ["Recall", "MRR", "NDCG", "Hit",
-                                   "Precision"])))
+        self.metrics = tuple(m.lower() for m in config.or_default(
+            "metrics", ["Recall", "MRR", "NDCG", "Hit", "Precision"]))
         self.n_items = model.n_items
 
     # -- per-batch scoring --------------------------------------------

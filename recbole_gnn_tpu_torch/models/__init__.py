@@ -46,10 +46,8 @@ def _reg(name, module, class_name, mtype, dataset_class, pending=None):
 _reg("LightGCN", "general.lightgcn", "LightGCN", _G, "GeneralGraphDataset")
 _reg("NGCF", "general.ngcf", "NGCF", _G, "GeneralGraphDataset", _GENERAL_PLAIN)
 _reg("SGL", "general.sgl", "SGL", _G, "GeneralGraphDataset", _GENERAL_OPS)
-_reg("SimGCL", "general.simgcl", "SimGCL", _G, "GeneralGraphDataset",
-     _GENERAL_PLAIN)
-_reg("XSimGCL", "general.xsimgcl", "XSimGCL", _G, "GeneralGraphDataset",
-     _GENERAL_PLAIN)
+_reg("SimGCL", "general.simgcl", "SimGCL", _G, "GeneralGraphDataset")
+_reg("XSimGCL", "general.xsimgcl", "XSimGCL", _G, "GeneralGraphDataset")
 _reg("NCL", "general.ncl", "NCL", _G, "GeneralGraphDataset", _GENERAL_OPS)
 _reg("HMLET", "general.hmlet", "HMLET", _G, "GeneralGraphDataset",
      _GENERAL_OPS)

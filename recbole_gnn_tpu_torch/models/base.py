@@ -29,6 +29,18 @@ Extras = dict[str, Any]
 Batch = dict[str, torch.Tensor]
 
 
+def device_generator(rng: torch.Generator,
+                     device: torch.device) -> torch.Generator:
+    """A generator on ``device`` for a model's draws: ``rng`` itself when
+    it lives there, else one seeded by a draw from ``rng`` (the trainer's
+    generators live on the host; drawing noise there and copying it
+    would cost a host-to-device copy per draw)."""
+    if rng.device.type == torch.device(device).type:
+        return rng
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=rng))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 class BaseRecommender:
     model_type: ModelType = ModelType.GENERAL
     input_type: InputType = InputType.PAIRWISE

@@ -1,10 +1,13 @@
-"""Loss library — BPR and EmbLoss (port of the part of
-``recbole_gnn_tpu/models/losses.py`` the general pairwise models use).
+"""Loss library — BPR, EmbLoss and the masked InfoNCE (port of the part
+of ``recbole_gnn_tpu/models/losses.py`` the general models ported so
+far use).
 
 Semantics match the [recbole] losses the reference imports: BPRLoss
-with gamma = 1e-10, EmbLoss with its ``require_pow`` branch.  Every
-loss takes an optional per-row ``weight`` so that the weight-0 rows the
-loaders pad the last batch with contribute nothing.
+with gamma = 1e-10, EmbLoss with its ``require_pow`` branch; the
+pairwise losses take an optional per-row ``weight`` so that the
+weight-0 rows the loaders pad the last batch with contribute nothing.
+``masked_unique`` / ``cl_nce_masked`` are SimGCL's and XSimGCL's
+contrastive loss over a batch's unique ids.
 """
 
 from __future__ import annotations
@@ -63,3 +66,41 @@ def emb_loss(embeddings: list[torch.Tensor],
 def reg_loss_l2(params_leaves: list[torch.Tensor]) -> torch.Tensor:
     """Plain Σ‖W‖₂² over parameter tensors."""
     return sum((p * p).sum() for p in params_leaves)
+
+
+def _l2n(x: torch.Tensor) -> torch.Tensor:
+    """Smooth L2 normalise: x / sqrt(Σx² + 1e-12), finite gradient at 0."""
+    return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
+
+
+def masked_unique(ids: torch.Tensor, size: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the sorted unique ids padded with 0 to ``size``, the mask
+    ``u > 0``): ``jnp.unique(ids, size=size, fill_value=0)`` with id 0
+    (PAD, never a batch's real id) marking the fill slots."""
+    size = ids.shape[0] if size is None else size
+    uniq = torch.unique(ids, sorted=True)[:size]
+    u = ids.new_zeros(size)
+    u[:uniq.shape[0]] = uniq
+    return u, u > 0
+
+
+def cl_nce_masked(view1: torch.Tensor, view2: torch.Tensor,
+                  temperature: float, mask: torch.Tensor,
+                  reduction: str = "sum") -> torch.Tensor:
+    """InfoNCE over masked rows: positives are aligned rows, negatives
+    the other valid rows of view2; fill rows count in neither."""
+    # the fill rows become ones BEFORE normalising: masking only the
+    # value would leave a 0/0 in the norm's backward (NaN·0 = NaN)
+    m = mask[:, None]
+    v1 = _l2n(torch.where(m, view1, torch.ones_like(view1)))
+    v2 = _l2n(torch.where(m, view2, torch.ones_like(view2)))
+    pos = (v1 * v2).sum(-1) / temperature
+    logits = torch.matmul(v1, v2.T) / temperature
+    logits = torch.where(mask[None, :], logits,
+                         torch.full_like(logits, -1e30))
+    loss = torch.logsumexp(logits, dim=-1) - pos
+    loss = torch.where(mask, loss, torch.zeros_like(loss))
+    if reduction == "sum":
+        return loss.sum()
+    return loss.sum() / torch.clamp(mask.sum().to(loss.dtype), min=1.0)

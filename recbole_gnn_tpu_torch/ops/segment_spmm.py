@@ -24,8 +24,9 @@ element in both packages — SGL's sentinel-row masking relies on that
 padding contract.
 
 ``segment_spmm`` launches the kernel for CUDA tensors and runs the
-plain version, :func:`spmm_coo`, for CPU tensors only.  It is the raw,
-non-differentiable launcher; gradients go through
+plain version, :func:`spmm_coo` (or, in the ``bf16`` and ``packed``
+precisions, :func:`segment_spmm_plain`), for CPU tensors only.  It is
+the raw, non-differentiable launcher; gradients go through
 :class:`SegmentSpmmFunction` (``ops.spmm.spmm``), whose backward is
 the transpose SpMM — the same kernel over the graph's reverse CSR
 (:func:`segment_spmm_transpose`), as the JAX package's custom VJP runs
@@ -53,6 +54,10 @@ MSGS_BYTES_BUDGET = 1 << 32     # 4 GB
 # edges per share of the kernel's schedule (the fastest of the sizes
 # chip_smoke.py times at the LightGCN slice shape; PERF.md)
 SHARE_EDGES = 256
+
+# pallas_spmm_precision values, in the kernel's mode order: f32x2 runs
+# the exact f32 terms, bf16 and packed form theirs as the TPU kernel does
+PRECISIONS = ("f32x2", "bf16", "packed")
 
 
 def segment_layout(e: int, ec: int | None = None,
@@ -108,6 +113,53 @@ def spmm_coo(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
                 * weight[s:s + chunk, None].to(x.dtype))
         out.index_add_(0, dst[s:s + chunk], msgs)
     return out
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 → bf16 rounded to nearest even → f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _hi_lo_bits(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``_hi_lo_bits``: hi = x truncated to its top
+    16 bits (a bf16 value), lo = bf16(x − hi); both as f32."""
+    hi = (x.contiguous().view(torch.int32) & -65536).view(torch.float32)
+    return hi, _bf16(x - hi)
+
+
+def segment_spmm_plain(src: torch.Tensor, dst: torch.Tensor,
+                       weight: torch.Tensor, x: torch.Tensor, n_out: int,
+                       precision: str = "f32x2") -> torch.Tensor:
+    """The plain version of each K1 precision, its terms formed as the
+    JAX package's ``_pallas_spmm_jit`` forms them and summed in f32 by
+    ``index_add_``: ``f32x2`` the exact ``w·x`` (:func:`spmm_coo`);
+    ``bf16`` each term ``bf16(w·x)``; ``packed`` x split into hi/lo
+    planes (:func:`_hi_lo_bits`), ``m = (hi + lo)·w`` per edge split
+    again, the two planes summed apart and added at the end."""
+    _check_precision(precision)
+    if precision == "f32x2":
+        return spmm_coo(src, dst, weight, x, n_out)
+    e, d = src.shape[0], x.shape[1]
+    planes = 2 if precision == "packed" else 1
+    out = torch.zeros((planes, n_out, d), dtype=torch.float32,
+                      device=x.device)
+    if precision == "packed":
+        hi, lo = _hi_lo_bits(x.to(torch.float32))
+        x = hi + lo
+    chunk = max(1, min(e, MSGS_BYTES_BUDGET // max(1, 2 * d * 4)))
+    for s in range(0, e, chunk):
+        m = (x.index_select(0, src[s:s + chunk])
+             * weight[s:s + chunk, None].to(torch.float32))
+        terms = _hi_lo_bits(m) if precision == "packed" else (_bf16(m),)
+        for p, t in enumerate(terms):
+            out[p].index_add_(0, dst[s:s + chunk], t)
+    return out.sum(0) if precision == "packed" else out[0]
+
+
+def _check_precision(precision: str):
+    if precision not in PRECISIONS:
+        raise ValueError(f"segment_spmm: precision must be one of "
+                         f"{PRECISIONS}, got {precision!r}")
 
 
 @dataclass(frozen=True)
@@ -265,24 +317,30 @@ def _check_cuda_args(src, dst, weight, rowptr, x):
 
 
 def segment_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
-                 rowptr: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+                 rowptr: torch.Tensor, x: torch.Tensor,
+                 precision: str = "f32x2") -> torch.Tensor:
     """out[r] = Σ_{e ∈ [rowptr[r], rowptr[r+1])} weight[e]·x[src[e]].
 
     Edges are sorted by ``dst`` and ``rowptr`` is their CSR row pointer
     (:func:`build_rowptr`); the output has ``len(rowptr) - 1`` rows.
-    A CUDA ``x`` launches the kernel (f32 ``x``/``weight``, int32
-    ``src``/``dst``, int64 ``rowptr``, all contiguous on one card; any
-    other input raises) over shares of ``SHARE_EDGES`` edges, with a
-    carry workspace of :func:`share_workspace_shape`; one launch runs
-    the share pass and the carry pass.  A CPU ``x`` runs
-    :func:`spmm_coo`.  ``segment_spmm.launches`` counts kernel
+    ``precision`` (one of ``PRECISIONS``) says how each term is formed
+    (:func:`segment_spmm_plain`).  A CUDA ``x`` launches the kernel (f32
+    ``x``/``weight``, int32 ``src``/``dst``, int64 ``rowptr``, all
+    contiguous on one card; any other input raises) over shares of
+    ``SHARE_EDGES`` edges, with a carry workspace of
+    :func:`share_workspace_shape`; one launch runs the share pass and
+    the carry pass.  A CPU ``x`` runs :func:`spmm_coo` (``f32x2``) or
+    :func:`segment_spmm_plain`.  ``segment_spmm.launches`` counts kernel
     launches."""
     n_rows = rowptr.shape[0] - 1
     if x.device.type == "cpu":
-        return spmm_coo(src, dst, weight, x, n_rows)
+        if precision == "f32x2":
+            return spmm_coo(src, dst, weight, x, n_rows)
+        return segment_spmm_plain(src, dst, weight, x, n_rows, precision)
     if x.device.type != "cuda":
         raise ValueError(f"segment_spmm: unsupported device {x.device}")
-    out = _segment_spmm_cuda(src, dst, weight, rowptr, x, SHARE_EDGES)
+    out = _segment_spmm_cuda(src, dst, weight, rowptr, x, SHARE_EDGES,
+                             precision)
     if out.numel():                 # an empty output launches nothing
         segment_spmm.launches += 1
     return out
@@ -291,13 +349,13 @@ def segment_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
 segment_spmm.launches = 0
 
 
-def _segment_spmm_cuda(src, dst, weight, rowptr, x,
-                       share_edges: int) -> torch.Tensor:
+def _segment_spmm_cuda(src, dst, weight, rowptr, x, share_edges: int,
+                       precision: str = "f32x2") -> torch.Tensor:
     """The kernel over shares of ``share_edges`` edges, on CUDA tensors;
     counts nothing and launches nothing for an empty output.
-    ``chip_smoke.py`` calls it to check and time other share sizes; the
-    C entry point refuses a size whose shares do not fit in shared
-    memory."""
+    ``chip_smoke.py`` calls it to check other share sizes; the C entry
+    point refuses a size whose shares do not fit in shared memory."""
+    _check_precision(precision)
     _check_cuda_args(src, dst, weight, rowptr, x)
     n_rows = rowptr.shape[0] - 1
     e, d = src.shape[0], x.shape[1]
@@ -313,7 +371,7 @@ def _segment_spmm_cuda(src, dst, weight, rowptr, x,
             x.data_ptr(), src.data_ptr(), weight.data_ptr(),
             dst.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
             carry.data_ptr(), n_rows, e, d, cuda_build.vec_width(x),
-            share_edges, stream)
+            share_edges, PRECISIONS.index(precision), stream)
     if rc != 0:
         raise RuntimeError(f"segment_spmm launch failed: CUDA error {rc}")
     return out
@@ -321,7 +379,8 @@ def _segment_spmm_cuda(src, dst, weight, rowptr, x,
 
 def segment_spmm_transpose(rev_src: torch.Tensor, rev_dst: torch.Tensor,
                            rev_weight: torch.Tensor, rev_rowptr: torch.Tensor,
-                           g: torch.Tensor) -> torch.Tensor:
+                           g: torch.Tensor,
+                           precision: str = "f32x2") -> torch.Tensor:
     """The transpose SpMM, dL/dx of :func:`segment_spmm`:
 
         gx[s] = Σ_{e: src[e]=s} w[e]·g[dst[e]]
@@ -334,7 +393,7 @@ def segment_spmm_transpose(rev_src: torch.Tensor, rev_dst: torch.Tensor,
     made here; ``segment_spmm.launches`` counts them too."""
     before = segment_spmm.launches
     out = segment_spmm(rev_src, rev_dst, rev_weight, rev_rowptr,
-                       g.contiguous())
+                       g.contiguous(), precision)
     segment_spmm_transpose.launches += segment_spmm.launches - before
     return out
 
@@ -350,10 +409,13 @@ class SegmentSpmmFunction(torch.autograd.Function):
     ``rev_weight``, ``rev_rowptr`` (``ops.spmm.Graph``); ``weight`` is
     its edge weight, passed apart so that autograd can see it.
 
-    Forward: :func:`segment_spmm`.  Backward: the x-cotangent is
-    :func:`segment_spmm_transpose` — the CUDA kernel for a CUDA tensor,
-    the plain ``spmm_coo`` over the same reverse arrays for a CPU one;
-    autograd never differentiates ``spmm_coo`` here.  The weight
+    Forward: :func:`segment_spmm` in the graph's ``precision`` on a
+    CUDA tensor; a CPU tensor runs ``f32x2``, as the JAX package runs
+    its Pallas kernel, and so its precision, on the TPU only.  Backward:
+    the x-cotangent is :func:`segment_spmm_transpose` in the same
+    precision — the CUDA kernel for a CUDA tensor, the plain ``spmm_coo``
+    over the same reverse arrays for a CPU one; autograd never
+    differentiates ``spmm_coo`` here.  The weight
     cotangent is ``None`` unless ``weight_grad``; then it is
     ``gw[e] = Σ_d x[src[e], d]·g[dst[e], d]`` in plain torch, as the
     JAX package computes it with XLA ops (``spmm.py:352-355``)."""
@@ -362,8 +424,11 @@ class SegmentSpmmFunction(torch.autograd.Function):
     def forward(ctx, x, weight, graph, weight_grad):
         ctx.graph = graph
         ctx.weight_grad = bool(weight_grad)
+        ctx.precision = (graph.precision if x.device.type == "cuda"
+                         else "f32x2")
         ctx.save_for_backward(x if ctx.weight_grad else None, weight)
-        return segment_spmm(graph.src, graph.dst, weight, graph.rowptr, x)
+        return segment_spmm(graph.src, graph.dst, weight, graph.rowptr, x,
+                            ctx.precision)
 
     @staticmethod
     def backward(ctx, g):
@@ -373,7 +438,7 @@ class SegmentSpmmFunction(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             gx = segment_spmm_transpose(graph.rev_src, graph.rev_dst,
                                         reverse_weight(graph, weight),
-                                        graph.rev_rowptr, g)
+                                        graph.rev_rowptr, g, ctx.precision)
         if ctx.weight_grad and ctx.needs_input_grad[1]:
             gw = weight_cotangent(graph, x, g)
         return gx, gw, None, None
@@ -402,6 +467,6 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         ll, i = ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return lib

@@ -15,25 +15,31 @@ Implementation switch (config ``sparse_spmm_impl``, carried on the
     row gather kernel (``ops/gather.py``, D2) makes the messages and the
     block segment sum kernel (``ops/segment_sum.py``, D1) weights and
     reduces them, over edge chunks above ``MSGS_BYTES_BUDGET``.
-  * ``ell``: bucketed-ELL is not ported yet (ROADMAP K2); on a CUDA
-    tensor it raises.
+  * ``ell`` (the config default): the bucketed-ELL SpMM
+    (``ops/ell_spmm.py``, ``csrc/ell_spmm.cu``, K2) over the layouts
+    ``Graph.ell`` / ``Graph.rev_ell`` that ``build_graph`` builds for an
+    ``ell`` graph.  An ``ell`` graph without them (built without, or
+    re-weighted by ``with_weight``) runs the ``xla`` composition, as
+    the JAX package runs its segment sum there.
 
-``pallas_spmm_precision``: for ``pallas``, ``f32x2`` runs the f32
-kernel, which is at least as exact; ``packed`` and ``bf16`` raise on a
-CUDA tensor.  The JAX package reads it only on the Pallas path, so the
-other implementations ignore it.
+``pallas_spmm_precision``, for ``pallas`` on a CUDA tensor: ``f32x2``
+runs the exact f32 terms, ``bf16`` and ``packed`` form their terms as
+the TPU kernel does (``ops/segment_spmm.py``).  The JAX package reads it
+only on the Pallas path, so the other implementations ignore it.
 
 On CPU tensors an ``xla`` graph runs the same composition through the
-plain versions of D2 and D1; every other value runs the plain version
-``spmm_coo``, as the JAX package ignores ``pallas`` off the TPU.  A
-CUDA tensor runs the kernels or raises; it never takes a plain version.
+plain versions of D2 and D1 and an ``ell`` graph with its layouts the
+plain ``ell_spmm``; ``pallas`` runs the plain version ``spmm_coo`` in
+f32, as the JAX package ignores ``pallas`` off the TPU.  A CUDA tensor
+runs the kernels or raises; it never takes a plain version.
 
-Gradients: ``spmm`` goes through ``SegmentSpmmFunction`` (``pallas``)
-or ``CooSpmmFunction`` (``xla``), whose backward is the transpose SpMM
-over the graph's reverse CSR, run by the same kernels — the port of the
-custom VJP ``_spmm_core`` (``recbole_gnn_tpu/ops/spmm.py:315-359``).
-The dense bipartite form stays a pair of ``torch.matmul`` under
-autograd, as the JAX package leaves it to XLA.
+Gradients: ``spmm`` goes through ``EllSpmmFunction`` (``ell``),
+``SegmentSpmmFunction`` (``pallas``) or ``CooSpmmFunction`` (``xla``),
+whose backward is the transpose SpMM — over the transpose layout or the
+reverse CSR, run by the same kernels — the port of the custom VJP
+``_spmm_core`` (``recbole_gnn_tpu/ops/spmm.py:315-359``).  The dense
+bipartite form stays a pair of ``torch.matmul`` under autograd, as the
+JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -44,6 +50,9 @@ import numpy as np
 import torch
 
 from recbole_gnn_tpu_torch.ops import segment_spmm as _seg
+from recbole_gnn_tpu_torch.ops.ell_spmm import (EllMeta, build_ell,
+                                                ell_reweight, ell_spmm,
+                                                ell_spmm_transpose)
 from recbole_gnn_tpu_torch.ops.gather import row_gather
 from recbole_gnn_tpu_torch.ops.segment_spmm import (
     SegmentSpmmFunction, build_rowptr, pad_edges, reverse_weight,
@@ -53,7 +62,8 @@ from recbole_gnn_tpu_torch.ops.segment_sum import block_segment_sum
 SPMM_IMPLS = ("ell", "xla", "pallas")
 SPMM_PRECISIONS = ("packed", "f32x2", "bf16")
 
-__all__ = ["Graph", "BipartiteDenseGraph", "CooSpmmFunction", "build_graph",
+__all__ = ["Graph", "BipartiteDenseGraph", "CooSpmmFunction",
+           "EllSpmmFunction", "build_graph",
            "build_dense_bipartite", "spmm", "spmm_any", "spmm_coo",
            "spmm_dense_bipartite", "xla_spmm", "SPMM_IMPLS",
            "SPMM_PRECISIONS"]
@@ -79,6 +89,10 @@ class Graph:
       n_nodes: number of destination nodes (output rows).
       n_src_nodes: number of source nodes (input rows).
       nnz: real edges (excluding the weight-0 padding).
+      ell / rev_ell: the bucketed-ELL layouts of the real edges
+        (``ops/ell_spmm.EllMeta``), forward (reduce by dst) and
+        transpose (reduce by src), their slot edge ids in the canonical
+        dst-sorted order; None unless built for an ``ell`` graph.
       impl / precision: the ``sparse_spmm_impl`` and
         ``pallas_spmm_precision`` this graph runs with.
     """
@@ -97,6 +111,8 @@ class Graph:
     rev_rowptr: torch.Tensor | None = None
     impl: str = "pallas"
     precision: str = "f32x2"
+    ell: EllMeta | None = None
+    rev_ell: EllMeta | None = None
 
     @property
     def n_edges(self) -> int:
@@ -120,31 +136,52 @@ class Graph:
                      self.nnz, rev_src=self.src, rev_dst=self.dst,
                      rev_edge_id=inv, rev_weight=self.weight,
                      rev_rowptr=self.rowptr, impl=self.impl,
-                     precision=self.precision)
+                     precision=self.precision, ell=self.rev_ell,
+                     rev_ell=self.ell)
 
     def with_weight(self, weight: torch.Tensor,
-                    rev_weight: torch.Tensor | None = None) -> "Graph":
+                    rev_weight: torch.Tensor | None = None,
+                    rebuild_ell: bool = False) -> "Graph":
         """New graph with re-weighted edges (dropout / augmentation), as
         the JAX package's ``Graph.with_weight``.  Pass ``rev_weight``
         (= ``weight[rev_edge_id]``) if it is cheap to have (once per
-        epoch); otherwise the backward gathers it per call.  The JAX
-        package clears the baked ELL layouts here, so a re-weighted
-        ``ell`` graph runs the segment-sum path: its impl becomes
-        ``xla``."""
+        epoch); otherwise the backward gathers it per call.
+
+        The ELL layouts bake the weights in.  With ``rebuild_ell`` (and
+        layouts that record their slots' edge ids) both are re-weighted
+        from ``weight[:n_edges]`` (the pallas padding stripped) and the
+        graph stays on ``ell``; otherwise they are cleared and a
+        re-weighted ``ell`` graph runs the segment-sum path: its impl
+        becomes ``xla``."""
+        if rebuild_ell and self.ell is not None and self.ell.epos is not None:
+            w_real = weight[:self.n_edges]
+            return replace(self, weight=weight, rev_weight=rev_weight,
+                           ell=ell_reweight(self.ell, w_real),
+                           rev_ell=ell_reweight(self.rev_ell, w_real))
         return replace(self, weight=weight, rev_weight=rev_weight,
-                       impl="xla" if self.impl == "ell" else self.impl)
+                       impl="xla" if self.impl == "ell" else self.impl,
+                       ell=None, rev_ell=None)
 
 
 def build_graph(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
                 n_nodes: int, n_src_nodes: int | None = None, *,
                 device: torch.device | str,
                 with_reverse: bool = True, with_pallas: bool = False,
-                impl: str = "pallas", precision: str = "f32x2") -> Graph:
+                impl: str = "pallas", precision: str = "f32x2",
+                with_ell: bool | None = None) -> Graph:
     """Host-side constructor: sorts edges by dst (stable), builds the
     row pointer and, with ``with_reverse``, the transposed ordering.
     With ``with_pallas`` the edge list is padded to the TPU kernel's
     segment layout (``pad_edges``), so the padded arrays equal the JAX
-    package's element for element."""
+    package's element for element.
+
+    With ``with_ell`` (default: when ``impl`` is ``ell``) and
+    ``with_reverse`` the bucketed-ELL layouts are built from the real
+    edges, as the JAX package's ``build_graph`` builds them: forward
+    reduces by dst and gathers by src; the transpose is re-sorted by
+    src and records its slots' edge ids in the canonical dst-sorted
+    order, so ``with_weight(..., rebuild_ell=True)`` can re-weight
+    both."""
     if impl not in SPMM_IMPLS:
         raise ValueError(f"sparse_spmm_impl must be one of {SPMM_IMPLS}, "
                          f"got {impl!r}")
@@ -169,6 +206,15 @@ def build_graph(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
     g = Graph(t(src), t(dst), t(weight), t(build_rowptr(dst, n_nodes)),
               int(n_nodes), int(n_src_nodes), int(nnz),
               impl=impl, precision=precision)
+    if with_ell is None:
+        with_ell = impl == "ell"
+    if with_ell and with_reverse:
+        s, d, w = src[:nnz], dst[:nnz], weight[:nnz]
+        g.ell = build_ell(s, d, w, n_nodes, with_epos=True, device=device)
+        r_order = np.argsort(s, kind="stable")
+        g.rev_ell = build_ell(d[r_order], s[r_order], w[r_order],
+                              n_src_nodes, with_epos=True, edge_ids=r_order,
+                              device=device)
     if with_reverse:
         rev_order = np.argsort(src, kind="stable").astype(np.int32)
         rev_dst = src[rev_order]
@@ -181,14 +227,16 @@ def build_graph(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
 
 
 def _check_cuda_impl(graph: Graph):
-    if graph.impl == "ell":
+    """Refuse, on the card, an impl or precision that has no kernel (a
+    graph whose fields were set past ``build_graph``'s checks)."""
+    if graph.impl not in SPMM_IMPLS:
         raise NotImplementedError(
-            "sparse_spmm_impl='ell' has no CUDA kernel yet (ROADMAP K2); "
-            "use sparse_spmm_impl=pallas or xla on the card")
-    if graph.impl == "pallas" and graph.precision != "f32x2":
+            f"sparse_spmm_impl={graph.impl!r} has no CUDA kernel; use one "
+            f"of {SPMM_IMPLS}")
+    if graph.impl == "pallas" and graph.precision not in SPMM_PRECISIONS:
         raise NotImplementedError(
-            f"pallas_spmm_precision={graph.precision!r} has no CUDA kernel "
-            "yet; use f32x2 (runs the exact f32 kernel)")
+            f"pallas_spmm_precision={graph.precision!r} has no CUDA kernel; "
+            f"use one of {SPMM_PRECISIONS}")
 
 
 def xla_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
@@ -254,15 +302,47 @@ class CooSpmmFunction(torch.autograd.Function):
         return gx, gw, None, None
 
 
+class EllSpmmFunction(torch.autograd.Function):
+    """Differentiable ``ell`` SpMM over a graph with both layouts — the
+    port of ``_spmm_core`` with ELL selected
+    (``recbole_gnn_tpu/ops/spmm.py:305-307, 336-338``).
+
+    ``apply(x, weight, graph, weight_grad)``: forward
+    :func:`ell_spmm` over ``graph.ell`` (its weights baked in; ``weight``
+    is passed for autograd); the x-cotangent is the same kernel over
+    ``graph.rev_ell`` (:func:`ell_spmm_transpose`); the weight
+    cotangent as in ``SegmentSpmmFunction``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, graph, weight_grad):
+        ctx.graph = graph
+        ctx.weight_grad = bool(weight_grad)
+        ctx.save_for_backward(x if ctx.weight_grad else None)
+        return ell_spmm(graph.ell, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        graph = ctx.graph
+        (x,) = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = ell_spmm_transpose(graph.rev_ell, g)
+        if ctx.weight_grad and ctx.needs_input_grad[1]:
+            gw = weight_cotangent(graph, x, g)
+        return gx, gw, None, None
+
+
 def spmm(graph: Graph, x: torch.Tensor,
          weight_grad: bool = False) -> torch.Tensor:
     """SpMM over a :class:`Graph` → (graph.n_nodes, D), differentiable.
 
-    CUDA: the kernels of ``graph.impl`` (``pallas``: the segment SpMM;
-    ``xla``: row gather + block segment sum) or a raise, forward and
-    backward.  CPU: ``xla`` runs its composition on the plain versions
-    of its kernels, every other impl the plain ``spmm_coo``.  The
-    x-gradient is the transpose SpMM over the reverse CSR.
+    CUDA: the kernels of ``graph.impl`` (``ell``: the bucketed-ELL SpMM;
+    ``pallas``: the segment SpMM in the graph's precision; ``xla``: row
+    gather + block segment sum) or a raise, forward and backward; an
+    ``ell`` graph without its layouts runs ``xla``.  CPU: ``ell`` with
+    its layouts and ``xla`` run their kernels' plain versions,
+    ``pallas`` the plain ``spmm_coo``.  The x-gradient is the transpose
+    SpMM over the transpose layout or the reverse CSR.
 
     ``weight_grad``: no model learns edge weights, so by default the
     weight cotangent is skipped; pass True to differentiate with respect
@@ -284,12 +364,15 @@ def spmm(graph: Graph, x: torch.Tensor,
                 "spmm: this graph was built with with_reverse=False, so "
                 "its backward (the transpose SpMM over the reverse CSR) "
                 "cannot run on the card; build it with with_reverse=True")
-        if graph.impl == "xla":
+        if graph.impl in ("xla", "ell"):
             return xla_spmm(graph.src, graph.dst, graph.weight,
                             graph.rowptr, x)
         return segment_spmm(graph.src, graph.dst, graph.weight,
-                            graph.rowptr, x)
-    if graph.impl == "xla":
+                            graph.rowptr, x, graph.precision)
+    if graph.impl == "ell" and graph.ell is not None \
+            and graph.rev_ell is not None:
+        return EllSpmmFunction.apply(x, graph.weight, graph, weight_grad)
+    if graph.impl in ("xla", "ell"):
         return CooSpmmFunction.apply(x, graph.weight, graph, weight_grad)
     return SegmentSpmmFunction.apply(x, graph.weight, graph, weight_grad)
 

@@ -52,14 +52,15 @@ class Trainer:
         self.device = model.device
         self.logger = get_logger()
         self.epochs = int(config.get("epochs", 300))
-        self.eval_step = max(1, int(config.get("eval_step", 1)))
+        self.eval_step = max(1, int(config.or_default("eval_step", 1)))
         self.stopping_step = int(config.get("stopping_step", 10))
-        self.valid_metric = str(config.get("valid_metric", "MRR@10")).lower()
+        self.valid_metric = str(config.or_default("valid_metric",
+                                                  "MRR@10")).lower()
         self.valid_metric_bigger = config["valid_metric_bigger"] is not False
         clip = config["clip_grad_norm"]
         self.optimizer = make_optimizer(
-            learner=config.get("learner", "adam"),
-            lr=float(config.get("learning_rate", 1e-3)),
+            learner=config.or_default("learner", "adam"),
+            lr=float(config.or_default("learning_rate", 1e-3)),
             weight_decay=float(config.get("weight_decay", 0.0)),
             clip_grad_norm=(float(clip["max_norm"]) if isinstance(clip, dict)
                             else clip))

@@ -152,18 +152,25 @@ def test_graph_spmm_cpu_runs_plain_for_every_impl(impl, precision):
 
 
 @pytest.mark.parametrize("impl,precision,match", [
-    ("ell", "f32x2", "K2"), ("ell", "bf16", "K2"),
-    ("pallas", "packed", "f32x2"), ("pallas", "bf16", "f32x2")])
+    ("cusparse", "f32x2", "sparse_spmm_impl"),
+    ("ell_v2", "bf16", "sparse_spmm_impl"),
+    ("pallas", "fp8", "pallas_spmm_precision"),
+    ("pallas", "f16", "pallas_spmm_precision")])
 def test_cuda_dispatch_refuses_unported_impls(impl, precision, match):
-    """On a CUDA tensor impl=pallas runs (the kernel) only with
-    precision=f32x2, and impl=ell (K2, not ported) raises, instead of
-    falling back."""
+    """On a CUDA tensor every impl and precision that build_graph takes
+    has a kernel (ell: K2; pallas: K1 in f32x2, bf16 and packed); an
+    impl or precision set past its checks has none and raises, instead
+    of falling back."""
+    for ok_impl in ("ell", "xla", "pallas"):
+        for ok_prec in ("f32x2", "bf16", "packed"):
+            _check_cuda_impl(build_graph(
+                np.array([0]), np.array([1]), np.array([1.0]), 2,
+                device="cpu", impl=ok_impl, precision=ok_prec))
     g = build_graph(np.array([0]), np.array([1]), np.array([1.0]), 2,
-                    device="cpu", impl=impl, precision=precision)
+                    device="cpu", impl="pallas")
     with pytest.raises(NotImplementedError, match=match):
-        _check_cuda_impl(g)
-    _check_cuda_impl(build_graph(np.array([0]), np.array([1]),
-                                 np.array([1.0]), 2, device="cpu"))
+        _check_cuda_impl(dataclasses.replace(g, impl=impl,
+                                             precision=precision))
 
 
 @pytest.mark.parametrize("precision", ["packed", "f32x2", "bf16"])
@@ -601,7 +608,7 @@ def test_wrapper_checks_share_edges_before_launch():
     that is not positive or whose shares do not fit in shared memory
     before either launch; the CPU path has no share size (spmm_coo)."""
     src = inspect.getsource(seg_mod.segment_spmm)
-    assert "_segment_spmm_cuda(" in src and "SHARE_EDGES)" in src
+    assert "_segment_spmm_cuda(" in src and "x, SHARE_EDGES," in src
     body = inspect.getsource(seg_mod._segment_spmm_cuda)
     assert body.index("share_workspace_shape(") < body.index("_library()")
     assert "torch.empty(" in body and ".launches" not in body
@@ -609,7 +616,7 @@ def test_wrapper_checks_share_edges_before_launch():
     assert "share_edges <= 0" in cu
     launch = cu[cu.index("int launch("):]
     assert (launch.index("smem > (size_t)kMaxSmem")
-            < launch.index("share_sum_kernel<VEC><<<")
+            < launch.index("share_sum_kernel<VEC, MODE><<<")
             < launch.index("carry_sum_kernel<VEC><<<"))
     x = torch.ones(3, 2)
     idx = torch.zeros(2, dtype=torch.int32)

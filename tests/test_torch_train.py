@@ -330,6 +330,39 @@ def test_stopping_min_epochs_floor(tmp_path):
     assert short < 8, short
 
 
+FALSY = [("metrics", []), ("learning_rate", 0), ("valid_metric", ""),
+         ("learner", ""), ("eval_step", 0)]
+
+
+@pytest.mark.parametrize("key,value", FALSY, ids=[k for k, _ in FALSY])
+def test_falsy_config_values_take_the_reference_default(monkeypatch, key,
+                                                        value):
+    """The JAX package reads these keys as ``config[k] or default``: an
+    empty or zero value takes the default.  Both packages' Trainer (and
+    its Evaluator) on the fixture get the same metrics, learning rate,
+    validation metric, learner and eval_step."""
+    _jax_globals(monkeypatch)
+    j_trainer_mod = importlib.import_module("recbole_gnn_tpu.train.trainer")
+    t_trainer_mod = importlib.import_module(
+        "recbole_gnn_tpu_torch.train.trainer")
+    seen = {}
+    for name, mod in (("jax", j_trainer_mod), ("torch", t_trainer_mod)):
+        def spy(_real=mod.make_optimizer, _name=name, **kw):
+            seen[_name] = (kw["learner"], kw["lr"])
+            return _real(**kw)
+        monkeypatch.setattr(mod, "make_optimizer", spy)
+    (jc, _, jm), (tc, _, tm) = _both(_cfg(**{key: value}))
+    assert jc[key] == tc[key] or key == "valid_metric"
+    jt, tt = JTrainer(jc, jm), TTrainer(tc, tm)
+    assert tt.evaluator.metrics == jt.evaluator.metrics
+    assert tt.evaluator.metrics == ("recall", "mrr", "ndcg", "hit",
+                                    "precision") or key != "metrics"
+    assert seen["torch"] == seen["jax"]
+    assert seen["torch"][1] > 0 and seen["torch"][0]
+    assert tt.valid_metric == jt.valid_metric and tt.valid_metric
+    assert tt.eval_step == jt.eval_step >= 1
+
+
 @pytest.mark.parametrize("over", [{"mesh_shape": [2]}])
 def test_unported_trainer_options_raise(over):
     c = TConfig(config_dict=_cfg(**over))

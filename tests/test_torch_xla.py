@@ -253,7 +253,7 @@ def test_wrappers_have_no_fallback_for_cuda():
     bwd = inspect.getsource(CooSpmmFunction.backward)
     assert "spmm_coo(" not in bwd and "rev_rowptr" in bwd
     sp = inspect.getsource(spmm_mod._check_cuda_impl)
-    assert '"ell"' in sp and '"xla"' not in sp
+    assert "SPMM_IMPLS" in sp and '"xla"' not in sp and '"ell"' not in sp
 
 
 @pytest.mark.parametrize("name", ["row_gather", "segment_sum"])
