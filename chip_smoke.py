@@ -35,7 +35,11 @@ step on the plain versions, and every kernel against its plain version
 at the slice shape and at edge-case shapes (a giant row, rows and empty
 rows that sit on share boundaries, rows on ELL bucket boundaries,
 isolated nodes, one row, forced edge chunks): K2 and K2ᵀ against
-``ell_spmm_plain`` and ``spmm_coo``, K1 and K1ᵀ in ``bf16`` and
+``ell_spmm_plain``, the sums of each row's real slots
+(``ell_spmm_pad_free_plain``) and ``spmm_coo``, and on three cases of
+their own (an input above half the L2; a non-finite row 0, which pad
+slots multiply by 0; a zero-weight real edge from a non-finite row), K1
+and K1ᵀ in ``bf16`` and
 ``packed`` against ``segment_spmm_plain``, K1 and K1ᵀ also
 against their share schedule in plain torch
 (``segment_spmm_shares_plain``), D1 in all four modes and in f32 with
@@ -46,7 +50,10 @@ cases at share size 1 too (``SHARE_CHECKED``).  It reruns K1, K1ᵀ, K2,
 K2ᵀ and D1 at the slice shape for bit equality, reads the device
 kernels of one call of each from the profiler (K1 and D1: share pass
 and carry pass; K2: row pass and combine pass), and times them beside
-their plain versions and one-call yardsticks.
+their plain versions and one-call yardsticks; K2 also in three L2
+states (warm with its output block reused, warm with every output kept
+alive, flushed), and every kernel inside its path's training step
+(device µs per launch, from the step profile).
 
 Prints the card's name and power limit, the build, check and timing
 lines, then a ``{"kernels": [...]}`` line and, last,
@@ -60,7 +67,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -80,8 +86,6 @@ EMBEDDING_SIZE = 64
 EPOCHS = {("LightGCN", "ell"): 2}
 # propagations per training step (each N_LAYERS SpMMs forward and back)
 PROPAGATIONS = {"LightGCN": 1, "XSimGCL": 1, "SimGCL": 3}
-# the LightGCN paper's Gowalla statistics (He et al., 2020, Table 1)
-GOWALLA_SHAPE = {"n_users": 29858, "n_items": 40981, "n_inter": 1027370}
 BATCHES = (1, 8, 64, 1024)
 TOP_K = 10
 TIMED_STEPS = 25           # the separately timed sample of training steps
@@ -143,53 +147,6 @@ def read_counts() -> dict:
     return c
 
 
-# -- data ---------------------------------------------------------------
-
-def write_gowalla_shape(root: str, name: str, seed: int, n_users: int,
-                        n_items: int, n_inter: int, min_per_user: int = 10,
-                        zipf_a: float = 0.8) -> str:
-    """Write ``root/name/name.inter``: ``n_inter`` unique (user, item)
-    pairs, every user with ≥ ``min_per_user`` and every item with ≥ 1
-    interaction, user activity lognormal and item popularity Zipf-like
-    (weight ∝ 1/rank^zipf_a)."""
-    rng = np.random.default_rng(seed)
-    act = rng.lognormal(0.0, 1.0, n_users)
-    deg = min_per_user + rng.multinomial(
-        n_inter - min_per_user * n_users, act / act.sum())
-    assert deg.max() < n_items and deg.sum() == n_inter
-    pop = 1.0 / np.arange(1, n_items + 1) ** zipf_a
-    pop = (pop / pop.sum())[rng.permutation(n_items)]
-
-    # every item once, each into a distinct user slot
-    slots = rng.permutation(np.repeat(np.arange(n_users), deg))[:n_items]
-    have = np.sort(slots.astype(np.int64) * n_items + np.arange(n_items))
-    need = deg - np.bincount(slots, minlength=n_users)
-    while need.sum() > 0:
-        users = np.repeat(np.arange(n_users, dtype=np.int64), 2 * need + 2)
-        key = users * n_items + rng.choice(n_items, len(users), p=pop)
-        key = key[~np.isin(key, have)]
-        key, first = np.unique(key, return_index=True)
-        key = key[np.argsort(first)]          # draw order, not item order
-        u = key // n_items
-        order = np.argsort(u, kind="stable")
-        u, key = u[order], key[order]
-        rank = np.arange(len(u)) - np.searchsorted(u, u)
-        take = rank < need[u]
-        have = np.sort(np.concatenate([have, key[take]]))
-        need -= np.bincount(u[take], minlength=n_users)
-    have = have[rng.permutation(len(have))]
-    d = os.path.join(root, name)
-    os.makedirs(d, exist_ok=True)
-    path = os.path.join(d, f"{name}.inter")
-    with open(path, "w", encoding="utf-8") as f:
-        f.write("user_id:token\titem_id:token\n")
-        f.write("\n".join(f"{u}\t{i}" for u, i in
-                          zip((have // n_items).tolist(),
-                              (have % n_items).tolist())))
-        f.write("\n")
-    return path
-
-
 # -- timing and bounds ------------------------------------------------------
 
 def time_cuda_ms(fn) -> float:
@@ -199,8 +156,11 @@ def time_cuda_ms(fn) -> float:
 
 def device_us_by_kernel(fn, reps: int = 20) -> dict:
     """Device µs per call of ``fn`` by kernel name (``torch.profiler``,
-    ``reps`` calls after one warm-up, the L2 left warm); empty where the
-    profiler records no device activity."""
+    ``reps`` calls after one warm-up, the L2 left warm): each kernel's
+    time over the records the profiler kept of it (in a long process it
+    drops some; each call runs each of its kernels once); empty where
+    the profiler records no device activity."""
+    from recbole_gnn_tpu_torch.diag.timing import kernel_records
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -208,14 +168,11 @@ def device_us_by_kernel(fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and evt.self_device_time_total):
-            m = re.search(r"(\w+)(?:<[^>]*>)?\(", evt.key)
-            out[m.group(1) if m else evt.key[:40]] = \
-                evt.self_device_time_total / reps
-    return out
+    total, records = kernel_records(prof)
+    for name, n in records.items():
+        if n != reps:
+            log(f"profiler: {n} records of {name} for {reps} calls")
+    return {name: us / records[name] for name, us in total.items()}
 
 
 def spmm_bytes(n_out: int, n_in: int, e: int, n_ptr: int,
@@ -227,16 +184,20 @@ def spmm_bytes(n_out: int, n_in: int, e: int, n_ptr: int,
             2 * e * d)
 
 
-def ell_bytes(meta, n_in: int, d: int) -> tuple[int, int]:
+def ell_bytes(meta, n_in: int, d: int, padded: bool = False
+              ) -> tuple[int, int]:
     """(bytes, flops) of one K2 call over the layout ``meta``: x read
-    once, out written once, each slot's int32 index and f32 weight, the
-    per-virtual-row plan (int32) and the rest lists (3 × int32), the
-    split nodes' workspace rows written and read once; 2·E_pad·d
-    flops."""
-    return (n_in * d * 4 + meta.n_nodes * d * 4 + meta.e_padded * 8
+    once, out written once, each real slot's int32 index and f32 weight
+    (the pads add nothing: what these inputs need), the per-virtual-row
+    plan (int32) and the rest lists (3 × int32), the split nodes'
+    workspace rows written and read once; 2·E·d flops over the E real
+    edges.  With ``padded``, every slot's index and weight and
+    2·E_pad·d flops, as the bound was counted before."""
+    slots = meta.e_padded if padded else int(meta.vlen.sum())
+    return (n_in * d * 4 + meta.n_nodes * d * 4 + slots * 8
             + meta.n_vrows * 4 + meta.rest_node.numel() * 12
             + 2 * meta.n_multi_vrows * d * 4,
-            2 * meta.e_padded * d)
+            2 * slots * d)
 
 
 def sorted_csr(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
@@ -332,12 +293,13 @@ def check_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor,
 def check_ell(name: str, graph, x: torch.Tensor, g: torch.Tensor
               ) -> tuple[float, float]:
     """K2 (forward over ``graph.ell``, on x) and K2ᵀ (over
-    ``graph.rev_ell``, on the cotangent g) against their plain version
-    ``ell_spmm_plain`` and, through the graph's own COO arrays, against
-    ``spmm_coo``; each rerun bit for bit.  Returns (max |err| forward,
-    max |err| transpose)."""
+    ``graph.rev_ell``, on the cotangent g) against their plain versions
+    ``ell_spmm_plain`` (the JAX composition) and
+    ``ell_spmm_pad_free_plain`` (each row's real slots only) and,
+    through the graph's own COO arrays, against ``spmm_coo``; each rerun
+    bit for bit.  Returns (max |err| forward, max |err| transpose)."""
     from recbole_gnn_tpu_torch.ops.ell_spmm import (
-        ell_spmm, ell_spmm_plain, ell_spmm_transpose)
+        ell_spmm, ell_spmm_plain, ell_spmm_pad_free_plain, ell_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
     errs = []
     for kind, meta, inp, coo, n_out, run in (
@@ -352,6 +314,8 @@ def check_ell(name: str, graph, x: torch.Tensor, g: torch.Tensor
         abssum = spmm_coo(s, d, w.abs(), inp.abs(), n_out)
         max_err = max(hold(kind, name, got, ell_spmm_plain(meta, inp),
                            abssum),
+                      hold(f"{kind} (vs pad-free)", name, got,
+                           ell_spmm_pad_free_plain(meta, inp), abssum),
                       hold(f"{kind} (vs spmm_coo)", name, got,
                            spmm_coo(s, d, w, inp, n_out), abssum))
         if not torch.equal(got, run()):
@@ -361,8 +325,103 @@ def check_ell(name: str, graph, x: torch.Tensor, g: torch.Tensor
             f"vrows={meta.n_vrows} split_nodes={meta.n_multi} "
             f"split_vrows={meta.n_multi_vrows} "
             f"isolated={meta.rest_node.numel() - meta.n_multi} "
+            f"real_slots={int(meta.vlen.sum())} "
             f"d={inp.shape[1]} max_abs_err={max_err:.3e} rerun bit-equal")
         errs.append(max_err)
+    return errs[0], errs[1]
+
+
+def hold_nonfinite(kind: str, name: str, got: torch.Tensor,
+                   want: torch.Tensor, abssum: torch.Tensor) -> float:
+    """``got`` against ``want`` where some entries are not finite: the
+    NaN and the inf positions equal, the finite entries within
+    TOL_REL_ABSSUM · abssum.  Returns max |err| over the finite ones."""
+    torch.cuda.synchronize()
+    for what, f in (("NaN", torch.isnan), ("inf", torch.isinf)):
+        if got.shape != want.shape or not torch.equal(f(got), f(want)):
+            raise AssertionError(f"{kind} on {name}: its {what} positions "
+                                 "differ from its plain version's")
+    fin = torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs()
+    if not bool((err <= TOL_REL_ABSSUM * abssum[fin]).all()):
+        raise AssertionError(f"{kind} disagrees with its plain version on "
+                             f"{name}: max_abs_err {float(err.max()):.3e}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_ell_cases(rng: np.random.Generator, dev) -> tuple[float, float]:
+    """K2 and K2ᵀ on three cases of their own.  ``above_half_l2``: an x
+    of 210,000 × 64 rows (53.8 MB, above half the 50 MB L2, where its
+    gathers miss the L2 more), by :func:`check_ell`.
+    On a graph whose degrees sit on the bucket widths and K_CAP (rows
+    with pad slots, split nodes, isolated nodes): ``nonfinite_x0``, inf
+    and NaN in two columns of the input's row 0, which every pad slot
+    multiplies by 0, so each padded row turns NaN there; and
+    ``zero_weight_edge``, a real edge of weight 0 whose source row holds
+    inf, which the pad-free version gathers all the same (pads are told
+    by position, never by weight), so its row turns NaN.  Those two against both plain
+    versions: NaN and inf positions equal, finite entries within the
+    tolerance, reruns bit-equal.  Returns (max |err| forward, transpose)
+    over the finite entries."""
+    from recbole_gnn_tpu_torch.ops.ell_spmm import (
+        ell_spmm, ell_spmm_plain, ell_spmm_pad_free_plain, ell_spmm_transpose)
+    from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
+    from recbole_gnn_tpu_torch.ops.spmm import build_graph
+    n, e = 210_000, 2_000_000
+    g = build_graph(rng.integers(0, n, e), (rng.zipf(1.3, e) - 1) % n,
+                    rng.normal(size=e).astype(np.float32), n, n, device=dev,
+                    impl="ell")
+    x = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32)).to(dev)
+    cot = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32)).to(dev)
+    errs = list(check_ell("above_half_l2", g, x, cot))
+    del g, x, cot
+
+    n = 4000
+    deg = rng.choice([0, 1, 3, 4, 7, 9, 60, 64, 200, 256, 300, 700], n,
+                     p=[0.1, 0.15, 0.15, 0.1, 0.1, 0.1, 0.05, 0.1, 0.05,
+                        0.04, 0.03, 0.03])
+    dst = np.repeat(np.arange(n), deg)
+    src = rng.integers(0, n, len(dst))
+    w = rng.normal(size=len(dst)).astype(np.float32)
+    zero = int(np.flatnonzero(src != 0)[len(src) // 2])
+    w[zero] = 0.0
+    g = build_graph(src, dst, w, n, n, device=dev, impl="ell")
+    for case in ("nonfinite_x0", "zero_weight_edge"):
+        x = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32))
+        cot = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32))
+        if case == "nonfinite_x0":
+            x[0, 3], x[0, 40] = float("inf"), float("nan")
+            cot[0, 7], cot[0, 50] = float("-inf"), float("nan")
+        else:           # its source row in K2, its destination in K2ᵀ
+            x[src[zero], 11] = float("inf")
+            cot[dst[zero], 21] = float("inf")
+        x, cot = x.to(dev), cot.to(dev)
+        for i, (kind, meta, inp, coo, n_out, run) in enumerate((
+                ("K2", g.ell, x, (g.src, g.dst, g.weight), g.n_nodes,
+                 lambda: ell_spmm(g.ell, x)),
+                ("K2T", g.rev_ell, cot, (g.rev_src, g.rev_dst, g.rev_weight),
+                 g.n_src_nodes, lambda: ell_spmm_transpose(g.rev_ell, cot)))):
+            got = run()
+            s, d, ww = coo
+            abssum = spmm_coo(s, d, ww.abs(), inp.abs().nan_to_num(
+                posinf=0.0), n_out)
+            want = ell_spmm_plain(meta, inp)
+            if not bool(torch.isnan(want).any()):
+                raise AssertionError(f"{kind} {case}: no NaN to compare")
+            err = max(hold_nonfinite(kind, case, got, want, abssum),
+                      hold_nonfinite(f"{kind} (vs pad-free)", case, got,
+                                     ell_spmm_pad_free_plain(meta, inp),
+                                     abssum))
+            again = run()
+            if not torch.equal(got.nan_to_num(), again.nan_to_num()) or \
+                    not torch.equal(torch.isnan(got), torch.isnan(again)):
+                raise AssertionError(f"{kind} reruns on {case} differ")
+            log(f"kernel check {kind} {case}: rows={n_out} nnz={g.nnz} "
+                f"e_pad={meta.e_padded} real_slots={int(meta.vlen.sum())} "
+                f"NaN entries={int(torch.isnan(got).sum())} inf entries="
+                f"{int(torch.isinf(got).sum())} (as both plain versions) "
+                f"max_abs_err (finite)={err:.3e} rerun bit-equal")
+            errs[i] = max(errs[i], err)
     return errs[0], errs[1]
 
 
@@ -658,15 +717,30 @@ def check_metrics(name: str, result: dict):
         raise AssertionError(f"{name} metrics missing or not finite: {result}")
 
 
+# each wrapper's device kernels by name, on the path of each impl (K1's
+# and D1's passes share names, but no path runs both)
+STEP_KERNELS = {
+    "ell": {"ell_spmm": ("ell_row_kernel", "ell_combine_kernel")},
+    "pallas": {"segment_spmm": ("share_sum_kernel", "carry_sum_kernel")},
+    "xla": {"row_gather": ("row_gather_kernel",),
+            "block_segment_sum": ("share_sum_kernel", "carry_sum_kernel",
+                                  "block_stream_kernel")}}
+
+
 def time_train_steps(trainer, model, state: dict, host_batches: list,
-                     dev) -> tuple[list[float], dict]:
+                     dev, impl: str) -> tuple[list[float], dict]:
     """Host-clock times (ms) of the training steps on ``host_batches``
     after 5 warm-up steps, each synchronised, from the trained
     checkpoint ``state``; a step is what ``fit`` does per batch: the
     batch to the device, loss, backward, Adam update.  Then 10 more
-    steps under ``torch.profiler``: device time by kernel and the
-    device's busy share of their wall time (empty where the profiler
-    records no device activity)."""
+    steps under ``torch.profiler``: device time by kernel name, the
+    device's busy share of their wall time and, per kernel wrapper of
+    the impl, its device µs per launch in the step (the sum over its
+    kernels of each one's time over its records: a launch runs each of
+    them once; a transpose launches through its forward wrapper), beside
+    the launches its counter took in the window; empty where the
+    profiler records no device activity."""
+    from recbole_gnn_tpu_torch.diag.timing import kernel_records
     from recbole_gnn_tpu_torch.eval.evaluator import to_device
     from recbole_gnn_tpu_torch.train.checkpoint import params_from_numpy
     params = params_from_numpy(state["params"], dev)
@@ -689,6 +763,8 @@ def time_train_steps(trainer, model, state: dict, host_batches: list,
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     window = host_batches[5 + TIMED_STEPS:]
+    wrappers = counters()
+    before = {k: wrappers[k].launches for k in STEP_KERNELS[impl]}
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -696,10 +772,8 @@ def time_train_steps(trainer, model, state: dict, host_batches: list,
             step(b)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device_us = {}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            device_us[evt.key] = evt.self_device_time_total
+    launches = {k: wrappers[k].launches - n for k, n in before.items()}
+    device_us, records = kernel_records(prof)
     profile = {}
     if device_us:
         busy = sum(device_us.values())
@@ -708,8 +782,18 @@ def time_train_steps(trainer, model, state: dict, host_batches: list,
                    "wall_ms_per_step": wall_us / len(window) / 1e3,
                    "device_ms_per_step": busy / len(window) / 1e3,
                    "device_busy_share": busy / wall_us,
-                   "top_ms_per_step": {k[:60]: v / len(window) / 1e3
-                                       for k, v in top}}
+                   "top_ms_per_step": {k: v / len(window) / 1e3
+                                       for k, v in top},
+                   "launches_per_step": {k: n / len(window)
+                                         for k, n in launches.items()},
+                   "records_per_step": {
+                       n: records.get(n, 0) / len(window)
+                       for names in STEP_KERNELS[impl].values()
+                       for n in names},
+                   "in_step_us_per_launch": {
+                       k: sum(device_us[n] / records[n] for n in names
+                              if records.get(n))
+                       for k, names in STEP_KERNELS[impl].items()}}
     return times[5:], profile
 
 
@@ -845,7 +929,8 @@ def train_path(tmp: str, impl: str, dev, model_name: str = "LightGCN"
     trainer = Trainer(config, model)
     it = iter(train_loader)
     host_batches = [next(it) for _ in range(5 + TIMED_STEPS + 10)]
-    step_ms, prof = time_train_steps(trainer, model, state, host_batches, dev)
+    step_ms, prof = time_train_steps(trainer, model, state, host_batches, dev,
+                                     impl)
     log(f"[{tag}] train step (host clock, synchronised, {TIMED_STEPS} "
         f"steps after 5 warm-up): median {np.median(step_ms):.3f} ms, min "
         f"{min(step_ms):.3f}, max {max(step_ms):.3f}")
@@ -873,7 +958,8 @@ def train_path(tmp: str, impl: str, dev, model_name: str = "LightGCN"
         log(f"[{tag}] step vs plain: " + ", ".join(
             f"{k} {v:.6e}" for k, v in step_err.items()))
     return {"config": config, "ckpt": ckpt, "model": model, "graph": graph,
-            "params": params, "steps": steps, "counts": counts}
+            "params": params, "steps": steps, "counts": counts,
+            "profile": prof}
 
 
 def serve_path(run: dict, tmp: str, impl: str, dev,
@@ -951,12 +1037,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from recbole_gnn_tpu_torch.diag import pallas_floor, row_gather as d2
+    from recbole_gnn_tpu_torch.diag import ell_l2, pallas_floor
+    from recbole_gnn_tpu_torch.diag import row_gather as d2
+    from recbole_gnn_tpu_torch.diag.gowalla_shape import (
+        GOWALLA_SHAPE, write_gowalla_shape)
     from recbole_gnn_tpu_torch.diag.timing import (bound_by, bound_ms,
                                                    host_us_per_call)
     from recbole_gnn_tpu_torch.ops import cuda_build
     from recbole_gnn_tpu_torch.ops.ell_spmm import (
-        ell_spmm, ell_spmm_plain, ell_spmm_transpose)
+        ell_spmm, ell_spmm_plain, ell_spmm_pad_free_plain, ell_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.gather import row_gather, row_gather_plain
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
         SHARE_EDGES, segment_spmm, segment_spmm_plain, segment_spmm_transpose,
@@ -1008,9 +1097,12 @@ def main() -> int:
         paths["xla_train"] = xla["counts"]
         paths["xla_serve"] = serve_path(xla, tmp, "xla", dev,
                                         batches=(1, 64))
+        profiles = {"ell": ell["profile"], "pallas": pallas["profile"],
+                    "xla": xla["profile"]}
         for model_name in ("SimGCL", "XSimGCL"):
             run = train_path(tmp, "ell", dev, model_name)
             paths[f"{model_name.lower()}_train"] = run["counts"]
+            profiles[model_name] = run["profile"]
             del run
         reset_counts()
         probe1 = pallas_floor.run("cuda")
@@ -1092,6 +1184,8 @@ def main() -> int:
                 for k, v in errs.items():
                     xla_err[k] = max(xla_err[k], v)
                 del g, xc, gc
+            e2 = check_ell_cases(case_rng, dev)
+            k2_err, k2_err_t = max(k2_err, e2[0]), max(k2_err_t, e2[1])
 
             # 6. times at the slice shape: K1 beside its plain version and
             # the library call
@@ -1162,11 +1256,21 @@ def main() -> int:
                     raise AssertionError(f"the profiler saw {us} per {kind} "
                                          "call; expected 2 device kernels")
                 nb, fl = ell_bytes(meta, inp.shape[0], EMBEDDING_SIZE)
+                nb_pad, fl_pad = ell_bytes(meta, inp.shape[0], EMBEDDING_SIZE,
+                                           padded=True)
                 want = ell_spmm_plain(meta, inp)
+                # the L2 states: warm with the output block reused, warm
+                # with every output kept alive, flushed before each call
+                states = {"warm_reused": ell_l2.warm_us(run, keep=False),
+                          "warm_fresh": ell_l2.warm_us(run, keep=True),
+                          "flushed": ell_l2.flushed(run, dev)}
                 k2[kind] = {
-                    "ms": time_cuda_ms(run),
+                    "ms": states["flushed"]["call_ms"],
+                    "l2_states": states,
                     "plain_ms": time_cuda_ms(
                         lambda: ell_spmm_plain(meta, inp)),
+                    "pad_free_plain_ms": time_cuda_ms(
+                        lambda: ell_spmm_pad_free_plain(meta, inp)),
                     "library_ms": time_cuda_ms(
                         lambda: torch.sparse.mm(lib, inp)),
                     "library_max_abs_err": float(
@@ -1174,10 +1278,13 @@ def main() -> int:
                     "k1_ms": time_cuda_ms(k1_run),
                     "device_us_by_kernel": us, "bytes": nb, "flops": fl,
                     "bound_ms": bound_ms(nb, fl), "bound_by": bound_by(nb, fl),
+                    "bound_ms_padded": bound_ms(nb_pad, fl_pad),
+                    "real_slots": int(meta.vlen.sum()),
                     "host_us_per_call": host_us_per_call(run, dev),
                     "gathered_tb_per_s": None}
                 k2[kind]["gathered_tb_per_s"] = (
-                    meta.e_padded * EMBEDDING_SIZE * 4 / k2[kind]["ms"] / 1e9)
+                    k2[kind]["real_slots"] * EMBEDDING_SIZE * 4
+                    / k2[kind]["ms"] / 1e9)
                 del lib, want
             # the xla SpMM whole (D2, then D1 with the weight)
             xla_ms = time_cuda_ms(lambda: xla_spmm(
@@ -1325,10 +1432,19 @@ def main() -> int:
             f"{r['k1_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bytes']} bytes, {r['flops']} flops; "
             f"{r['bound_ms'] / r['ms']:.1%} of the bound), row gathers at "
-            f"{r['gathered_tb_per_s']:.3f} TB/s, device us per call "
+            f"{r['gathered_tb_per_s']:.3f} TB/s ({r['real_slots']} real "
+            f"slots), bound over every slot as before "
+            f"{r['bound_ms_padded']:.4f} ms, the pad-free plain version "
+            f"{r['pad_free_plain_ms']:.4f} ms, device us per call "
             f"(torch.profiler, 20 calls, L2 warm) "
             f"{json.dumps(r['device_us_by_kernel'])}, host us per call "
-            f"{r['host_us_per_call']:.1f}")
+            f"{r['host_us_per_call']:.1f}; L2 states (device us per call, "
+            f"row + combine): {json.dumps(r['l2_states'])}")
+    for path, prof in profiles.items():
+        log(f"in-step device us per launch ({path} training, "
+            f"torch.profiler, 10 steps): "
+            + (json.dumps(prof["in_step_us_per_launch"]) if prof
+               else "not measured"))
     d2_bound = bound_ms(d2_bytes, d2_flops)
     d1_bound = bound_ms(d1_bytes, d1_flops)
     log(f"xla SpMM (D2, then D1 with the weight) at the slice shape: forward "
@@ -1360,6 +1476,10 @@ def main() -> int:
     def by_path(k):
         return {p: c[k] for p, c in paths.items()}
 
+    def in_step(path, wrapper):
+        prof = profiles[path]
+        return prof["in_step_us_per_launch"][wrapper] if prof else None
+
     def k2_entry(kind, name, replaces, fn_name, launches):
         r = k2[kind]
         return {"name": name, "route": "cuda",
@@ -1374,7 +1494,16 @@ def main() -> int:
                 "device_kernels_per_call": len(r["device_us_by_kernel"]),
                 "device_us_by_kernel": r["device_us_by_kernel"],
                 "host_us_per_call": r["host_us_per_call"],
-                "gathered_tb_per_s": r["gathered_tb_per_s"]}
+                "gathered_tb_per_s": r["gathered_tb_per_s"],
+                "real_slots": r["real_slots"],
+                "bound_ms_padded": r["bound_ms_padded"],
+                "pad_free_plain_ms": r["pad_free_plain_ms"],
+                "l2_states": dict(r["l2_states"], in_step=in_step(
+                    "ell", "ell_spmm")),
+                "in_step_us_per_launch": in_step("ell", "ell_spmm"),
+                "in_step_us_per_launch_by_path": {
+                    p: in_step(p, "ell_spmm")
+                    for p in ("ell", "SimGCL", "XSimGCL")}}
 
     ell_paths = ("ell_train", "ell_serve", "simgcl_train", "xsimgcl_train")
     print(json.dumps({"kernels": [
@@ -1391,6 +1520,7 @@ def main() -> int:
          "device_us_by_kernel": split_us,
          "host_us_per_call": host_us["segment_spmm"],
          "gathered_tb_per_s": gathered / kernel_ms / 1e9,
+         "in_step_us_per_launch": in_step("pallas", "segment_spmm"),
          "modes_ms": {p: r["ms"] for p, r in k1_modes.items()},
          "modes_plain_ms": {p: r["plain_ms"] for p, r in k1_modes.items()},
          "modes_max_abs_err": mode_err},
@@ -1406,7 +1536,8 @@ def main() -> int:
          "library_ms": library_t_ms, "device_kernels_per_call": per_call_t,
          "device_us_by_kernel": split_t_us,
          "host_us_per_call": host_us["segment_spmm_transpose"],
-         "gathered_tb_per_s": gathered / kernel_t_ms / 1e9},
+         "gathered_tb_per_s": gathered / kernel_t_ms / 1e9,
+         "in_step_us_per_launch": in_step("pallas", "segment_spmm")},
         {"name": "row_gather", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/row_gather.cu",
          "replaces": "scripts/diag/r3_sparse_probe4.py:98",
@@ -1418,6 +1549,7 @@ def main() -> int:
          "plain_ms": d2_plain_ms, "bound_ms": d2_bound,
          "bound_by": bound_by(d2_bytes, d2_flops), "library_ms": d2_plain_ms,
          "host_us_per_call": host_us["row_gather"],
+         "in_step_us_per_launch": in_step("xla", "row_gather"),
          "probe_shape": {k: probe2[k] for k in
                          ("ms", "plain_ms", "bound_ms", "library_ms")}},
         {"name": "block_segment_sum", "route": "cuda",
@@ -1434,6 +1566,7 @@ def main() -> int:
          "index_add_preweighted_ms": d1_index_add_ms,
          "device_kernels_per_call": len(d1_us), "device_us_by_kernel": d1_us,
          "host_us_per_call": host_us["block_segment_sum"],
+         "in_step_us_per_launch": in_step("xla", "block_segment_sum"),
          "hub_block_ms": d1_hub_ms,
          "modes_ms": {m: r["ms"] for m, r in d1.items()},
          "modes_plain_ms": {m: r["plain_ms"] for m, r in d1.items()},

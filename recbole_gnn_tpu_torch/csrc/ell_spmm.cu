@@ -13,12 +13,29 @@
 // build_ell, the JAX numpy code copied) and makes none of those
 // intermediates: the messages w * x[idx] are summed in registers.
 //
-// What bounds it on H100: memory.  Per slot it reads a 4-byte index, a
-// 4-byte weight and one D-float row of x, for 2*D flops.  The DRAM
-// traffic the work needs is x read once, out written once and the
-// slots' index and weight; the E_pad*D*4 bytes of row gathers are served
-// mostly by the 50 MB L2 at the LightGCN slice shape (x is 18 MB), as in
-// K1 (csrc/segment_spmm.cu).
+// What bounds it on H100.  The DRAM traffic the work needs is x read
+// once, out written once and each real slot's 4-byte index and 4-byte
+// weight: at the LightGCN slice shape (70,841 nodes, D = 64, 1.70M
+// edges) about 51 MB, 15 us at 3.35 TB/s.  What the kernel does is one
+// D-float row gather of x per slot, 519 MB at that shape, which the L2
+// serves (x is 18.1 MB of its 50 MB): the row pass takes the same time
+// with the L2 warm, with every call writing new output memory (as in a
+// training step, where autograd keeps each layer's output) and inside
+// the step, and 4 % more flushed, so the slot and output streams do not
+// evict x to any effect.  Its time is set by how many gathers are in
+// flight against the L2's latency: each lane group keeps kUnroll of
+// them, and the row pass is capped at 80 registers so that three
+// 256-thread blocks fit on an SM, not two, at the price of a few bytes
+// of spills (ptxas -v).  The read-once streams (idx, w, vdst) are
+// loaded, and out and the workspace stored, evict-first (.cs), which
+// keeps them from displacing x.  Measured against this kernel on the
+// card (the K2 probe, diag/ell_l2.py) and dropped, each being slower:
+// an L2 evict_last policy for x with a bulk L2 prefetch at the start of
+// the pass; skipping the pad slots by a per-row count of real slots;
+// and a warp-uniform trip count for that skip.  Pad slots all gather
+// row 0, which stays in every SM's L1, so skipping them saves almost no
+// L2 traffic, while the bookkeeping costs registers and instructions
+// on every slot.
 //
 // Schedule.  Two kernels on the caller's stream, no more:
 //   1. the row pass walks every virtual row of every bucket in ONE
@@ -30,26 +47,30 @@
 //      lanes (L*VEC columns at a time; D wider than 32*VEC takes
 //      several passes) owns rpg = max(1, 64 / K) consecutive rows of one
 //      bucket: the rows are fixed-length, so every group has the same
-//      work and needs no carry.  Narrow buckets (K = 4, 8) pack several
-//      rows into each group, and at D = 64 two 16-lane groups share a
-//      warp.  The group loads L slots' indices and weights at once, one
-//      per lane (the next L are loaded before the current ones are
-//      used), passes them round by shuffles and keeps kUnroll row
-//      gathers in flight.  A finished row goes to its node's output row
-//      when the node has one virtual row (vdst >= 0), else to row
-//      -(1 + vdst) of a workspace that the wrapper allocates (one
-//      D-float row per virtual row of a split node).
+//      work and needs no carry, and the groups of a warp never diverge.
+//      Narrow buckets (K = 4, 8) pack several rows into each group, and
+//      at D = 64 two 16-lane groups share a warp.  The group loads L
+//      slots' indices and weights at once, one per lane (the next L are
+//      loaded before the current ones are used), passes them round by
+//      shuffles and keeps kUnroll row gathers in flight.  A finished row
+//      goes to its node's output row when the node has one virtual row
+//      (vdst >= 0), else to row -(1 + vdst) of a workspace that the
+//      wrapper allocates (one D-float row per virtual row of a split
+//      node).
 //   2. the combine pass writes the rest of the nodes, one lane group
 //      each: a split node (degree above K_CAP) as the sum of its
-//      workspace rows in row order, an isolated node (PAD ids 0 among
-//      them) as 0.  It is not launched when there are no such nodes.
+//      workspace rows in row order, kCombineUnroll loads in flight, an
+//      isolated node (PAD ids 0 among them) as 0.  It is not launched
+//      when there are no such nodes.
 // Each row is summed in slot order in f32 (fused multiply-adds); no
 // value is added atomically, so reruns repeat bit for bit.  A pad slot
-// (source row 0, weight 0) is not skipped: it is gathered and added
-// like any other slot, so a non-finite x[0] spreads as it does in the
-// plain version, and the loop has no branch on the weight.
+// (source row 0, weight 0) is gathered and added like any other slot:
+// for a finite x[0] it adds +0 or -0, which leaves the row's value as
+// the sum of its real slots (ops/ell_spmm.py's ell_spmm_pad_free_plain),
+// and a non-finite x[0] spreads NaN as the plain version's einsum does.
 //
-// Hopper features: none beyond vector loads and warp shuffles.  The
+// Hopper features: none beyond vector loads, cache-streaming hints and
+// warp shuffles.  The
 // indices are loaded by the group's lanes together and broadcast by
 // shuffles instead of staged in shared memory: a group's slots are
 // contiguous, so the load is coalesced, and the next batch is in flight
@@ -65,6 +86,8 @@ constexpr int kThreads = 256;      // threads per block (both passes)
 constexpr int kUnroll = 8;         // row gathers in flight per lane group
 constexpr int kGroupSlots = 64;    // slots per lane group in narrow buckets
 constexpr int kMaxBuckets = 32;
+constexpr int kRowBlocksPerSM = 3;  // row-pass blocks per SM (<= 80 registers)
+constexpr int kCombineUnroll = 16;  // workspace rows in flight (combine pass)
 
 struct Buckets {
   int n;
@@ -82,7 +105,7 @@ struct Vec;
 template <>
 struct Vec<1> {
   __device__ static void load(float* v, const float* p) { v[0] = __ldg(p); }
-  __device__ static void store(float* p, const float* a) { p[0] = a[0]; }
+  __device__ static void store(float* p, const float* a) { __stcs(p, a[0]); }
 };
 template <>
 struct Vec<2> {
@@ -92,7 +115,7 @@ struct Vec<2> {
     v[1] = t.y;
   }
   __device__ static void store(float* p, const float* a) {
-    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+    __stcs(reinterpret_cast<float2*>(p), make_float2(a[0], a[1]));
   }
 };
 template <>
@@ -105,7 +128,8 @@ struct Vec<4> {
     v[3] = t.w;
   }
   __device__ static void store(float* p, const float* a) {
-    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+    __stcs(reinterpret_cast<float4*>(p),
+           make_float4(a[0], a[1], a[2], a[3]));
   }
 };
 
@@ -115,7 +139,7 @@ __device__ __forceinline__ unsigned group_mask(int L) {
 }
 
 template <int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kRowBlocksPerSM)
 ell_row_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
                const float* __restrict__ w, const int32_t* __restrict__ vdst,
                float* __restrict__ out, float* __restrict__ ws,
@@ -147,14 +171,14 @@ ell_row_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
     for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
     int row = 0;       // the group's row being summed
     int left = K;      // its slots still to add
-    int32_t ci = sub < n ? __ldg(idx + a + sub) : 0;
-    float cw = sub < n ? __ldg(w + a + sub) : 0.f;
+    int32_t ci = sub < n ? __ldcs(idx + a + sub) : 0;
+    float cw = sub < n ? __ldcs(w + a + sub) : 0.f;
     for (int e0 = 0; e0 < n; e0 += L) {
       const int m = min(L, n - e0);
       // the next L slots, in flight while these are gathered
       const int nx = e0 + L + sub;
-      const int32_t ni = nx < n ? __ldg(idx + a + nx) : 0;
-      const float nw = nx < n ? __ldg(w + a + nx) : 0.f;
+      const int32_t ni = nx < n ? __ldcs(idx + a + nx) : 0;
+      const float nw = nx < n ? __ldcs(w + a + nx) : 0.f;
       for (int u0 = 0; u0 < m; u0 += kUnroll) {
         float v[kUnroll][VEC];
         float wt[kUnroll];
@@ -175,7 +199,7 @@ ell_row_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
 #pragma unroll
             for (int q = 0; q < VEC; ++q) acc[q] += wt[u] * v[u][q];
             if (--left == 0) {  // the row is complete
-              const int t = __ldg(rdst + row);
+              const int t = __ldcs(rdst + row);
               float* o = t >= 0 ? out + (long long)t * d
                                 : ws + (long long)(-1 - t) * d;
               if (active) Vec<VEC>::store(o + col, acc);
@@ -216,13 +240,14 @@ ell_combine_kernel(const float* __restrict__ ws,
 #pragma unroll
     for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
     int r = 0;
-    for (; r + 4 <= cnt; r += 4) {  // 4 loads issued together, added in order
-      float v[4][VEC];
+    // kCombineUnroll loads issued together, added in row order
+    for (; r + kCombineUnroll <= cnt; r += kCombineUnroll) {
+      float v[kCombineUnroll][VEC];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < kCombineUnroll; ++u)
         Vec<VEC>::load(v[u], p + (long long)(r + u) * d + col);
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < kCombineUnroll; ++u)
 #pragma unroll
         for (int q = 0; q < VEC; ++q) acc[q] += v[u][q];
     }

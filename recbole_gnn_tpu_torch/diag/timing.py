@@ -5,7 +5,8 @@ after a 256 MB write that evicts the 50 MB L2 (the main path finds its
 inputs cold at these sizes) and a spin kernel that keeps the card busy
 while the host prepares the launch, so that the interval holds the
 device's time and not the wrapper's host time.  That host time is
-measured apart, by :func:`host_us_per_call`.  On the CPU it is the
+measured apart, by :func:`host_us_per_call`.  :func:`kernel_records`
+reads a ``torch.profiler`` run by kernel name.  On the CPU it is the
 host clock: a number about PyTorch's CPU kernels, never a device
 metric.
 
@@ -16,6 +17,7 @@ at 67 TFLOP/s.
 
 from __future__ import annotations
 
+import re
 import time
 
 import numpy as np
@@ -95,3 +97,18 @@ def bound_ms(n_bytes: int, flops: int) -> float:
 def bound_by(n_bytes: int, flops: int) -> str:
     return ("bytes" if n_bytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
             else "operations")
+
+
+def kernel_records(prof) -> tuple[dict, dict]:
+    """(device µs, records) by kernel base name (no namespace, template
+    or arguments) over a profile, summed over the ``key_averages()``
+    entries of each name."""
+    total, records = {}, {}
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and evt.self_device_time_total):
+            m = re.search(r"(\w+)(?:<[^>]*>)?\(", evt.key)
+            k = m.group(1) if m else evt.key[:40]
+            total[k] = total.get(k, 0.0) + evt.self_device_time_total
+            records[k] = records.get(k, 0) + evt.count
+    return total, records

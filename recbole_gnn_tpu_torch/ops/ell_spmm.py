@@ -21,14 +21,18 @@ bucket chunking by ``BUCKET_BYTES_BUDGET`` included.  On the card
 virtual row of every bucket that writes a single-row node's output row
 directly and a split node's rows to a small workspace, then a pass that
 sums each split node's rows in order and writes 0 for an isolated node.
-No ``(E_pad, D)`` message array is made.
+No ``(E_pad, D)`` message array is made.  The kernel gathers the pad
+slots too (weight 0 on row 0: each adds ±0 for a finite ``x[0]``), so
+its rows equal the sums of their real slots, which
+:func:`ell_spmm_pad_free_plain` computes from ``vlen`` alone.
 
 The layout keeps its buckets in flat buffers (``idx``, ``w``, ``epos``,
 bucket after bucket, each row-major ``(n_b, K_b)``); :attr:`EllMeta.idxs`,
 ``.ws`` and ``.eposs`` give back the per-bucket views of the JAX
 ``EllMeta``.  Beside them it holds what the kernel reads: ``vdst`` (per
 virtual row: its node, or ``-(1 + j)`` for row ``j`` of the split-node
-workspace) and the ``rest`` list (split and isolated nodes).
+workspace) and the ``rest`` list (split and isolated nodes); ``vlen``
+counts each virtual row's real slots.
 """
 
 from __future__ import annotations
@@ -71,6 +75,9 @@ class EllMeta:
       n_in: rows of ``x`` the layout reads (1 + its largest source id).
       vdst: (n_vrows,) int32 — where the kernel writes each virtual
         row: its node, or ``-(1 + j)`` for workspace row j (split nodes).
+      vlen: (n_vrows,) int32 — each virtual row's real slots (1..K_b),
+        which come first in the row; the rest are pad slots (idx 0,
+        w 0, epos one past the last edge).  Sums to the edge count.
       rest_node / rest_start / rest_count: (n_rest,) int32 — the nodes
         the kernel's second pass writes: split nodes (their workspace
         rows [start, start + count)) and isolated nodes (count 0).
@@ -92,6 +99,7 @@ class EllMeta:
     n_multi: int
     n_in: int
     vdst: torch.Tensor
+    vlen: torch.Tensor
     rest_node: torch.Tensor
     rest_start: torch.Tensor
     rest_count: torch.Tensor
@@ -112,6 +120,11 @@ class EllMeta:
     @property
     def ws(self) -> tuple:
         return self._views(self.w)
+
+    @property
+    def vlens(self) -> tuple:
+        """Per bucket, its rows' real-slot counts, (n_b,) each."""
+        return tuple(torch.split(self.vlen, list(self.rows)))
 
     @property
     def eposs(self) -> tuple | None:
@@ -213,7 +226,7 @@ def build_ell(src_sorted: np.ndarray, dst_sorted: np.ndarray,
     n_vrows = -(-deg // kb)      # 0 for isolated nodes
 
     n_edges = len(src_sorted)
-    idxs, ws, vnodes, eposs = [], [], [], []
+    idxs, ws, vnodes, vlens, eposs = [], [], [], [], []
     for K in np.unique(kb[deg > 0]):
         sel = np.where((kb == K) & (deg > 0))[0]
         vr = n_vrows[sel]
@@ -235,6 +248,7 @@ def build_ell(src_sorted: np.ndarray, dst_sorted: np.ndarray,
         idxs.append(idx)
         ws.append(ww)
         vnodes.append(vnode)
+        vlens.append(lens)
         if with_epos:
             # pad slots point one past the last edge (ell_reweight
             # appends a 0 there)
@@ -292,7 +306,8 @@ def build_ell(src_sorted: np.ndarray, dst_sorted: np.ndarray,
         msegs=None if msegs is None else t(msegs),
         n_nodes=int(n_nodes), n_multi=n_multi,
         n_in=int(src_sorted.max()) + 1 if n_edges else 0,
-        vdst=t(vdst), rest_node=t(rest.astype(np.int32)),
+        vdst=t(vdst), vlen=t(cat(vlens, np.int32).astype(np.int32)),
+        rest_node=t(rest.astype(np.int32)),
         rest_start=t(rest_start.astype(np.int32)),
         rest_count=t(rest_count.astype(np.int32)),
         epos=t(cat(eposs, np.int32)) if with_epos else None)
@@ -367,6 +382,48 @@ def _bucket_sum(x, idx, w, d):
     n_b, k = idx.shape
     g = x.index_select(0, idx.reshape(-1)).reshape(n_b, k, d)
     return torch.einsum("nkd,nk->nd", g, w.to(x.dtype))
+
+
+def ell_spmm_pad_free_plain(meta: EllMeta, x: torch.Tensor
+                            ) -> torch.Tensor:
+    """A second plain version, which ``chip_smoke.py`` and the tests
+    hold the kernel against beside :func:`ell_spmm_plain`: per bucket
+    only the first ``vlen`` slots of each virtual row (its real edges)
+    are gathered and summed in slot order, and a row that has pad slots
+    adds ``0 · x[0]`` once (0 for a finite ``x[0]``, NaN where it is
+    not, as the einsum over every slot gives); each virtual row goes
+    where ``vdst`` says, and the combine plan sums a split node's
+    workspace rows in row order and writes 0 for an isolated node."""
+    d = x.shape[-1]
+    out = x.new_zeros((meta.n_nodes, d))
+    if not meta.ks:
+        return out
+    vrs = []
+    for idx, w, vl in zip(meta.idxs, meta.ws, meta.vlens):
+        n_b, k = idx.shape
+        real = torch.arange(k, device=idx.device) < vl[:, None].long()
+        r, c = real.nonzero(as_tuple=True)      # row-major: slot order
+        terms = x.index_select(0, idx[r, c]) * w[r, c, None].to(x.dtype)
+        vr = x.new_zeros((n_b, d)).index_add_(0, r, terms)
+        padded = vl < k
+        vr[padded] += 0 * x[0]
+        vrs.append(vr)
+    vr = torch.cat(vrs)
+    single = meta.vdst >= 0
+    out[meta.vdst[single].long()] = vr[single]
+    ws = x.new_empty((meta.n_multi_vrows, d))
+    ws[(-1 - meta.vdst[~single]).long()] = vr[~single]
+    counts = meta.rest_count.long()
+    seg = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+    rows = (torch.repeat_interleave(meta.rest_start.long(), counts)
+            + torch.arange(seg.numel(), device=counts.device)
+            - torch.repeat_interleave(torch.cumsum(counts, 0) - counts,
+                                      counts))
+    sums = x.new_zeros((counts.numel(), d)).index_add_(
+        0, seg, ws.index_select(0, rows))
+    out[meta.rest_node.long()] = sums
+    return out
 
 
 _LAYOUT_TENSORS = ("idx", "w", "vdst", "rest_node", "rest_start",
