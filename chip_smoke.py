@@ -26,7 +26,24 @@ the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
    perturbed propagations) and XSimGCL (3 and 3) on ``ell``, 1 epoch
    each, at the same shape and width;
 6. the probes: D1 and D2 at the shapes of the TPU probes they replace
-   (``recbole_gnn_tpu_torch.diag.pallas_floor`` / ``.row_gather``).
+   (``recbole_gnn_tpu_torch.diag.pallas_floor`` / ``.row_gather``);
+7. after every kernel check and timing below, the general family on
+   ``ell`` (in a child process of the script, ``--general``), each
+   model through
+   ``run_recbole_gnn_tpu`` at its published yaml settings for 1 epoch
+   (HMLET 2): per step K2 forward / K2ᵀ back SGL 9 / 9 (the graph and
+   two augmented views, 3 layers each; each view's ELL layouts and their
+   kernel arguments made once per epoch, checked through
+   ``_layout_args.builds``), NGCF 3 / 3, NCL 3 / 3, HMLET 6 / 6 (4
+   layers, gates at 2 and 3), LightGCL 4 / 4 (2 layers over its
+   rectangular graphs), DirectAU with the LightGCN encoder 3 / 3,
+   NeuMF and SSL4REC none; the deliberate overrides (NCL
+   ``warm_up_step: 0``, HMLET ``warm_up_epochs: 0``, DirectAU
+   ``encoder: LightGCN``) are logged with their reasons.  Each graph
+   model's step is held against the same step on plain SpMMs, and so
+   are NGCF with ``node_dropout: 0.1`` (its re-weighted graph runs D2
+   and D1) and LightGCL on ``pallas`` (K1 and K1ᵀ); SGL is exported
+   and served, and NeuMF's export must refuse.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after, and the counts are checked exactly.  Then it holds one
@@ -113,6 +130,11 @@ SMALL_CASE_EDGES = 1_000_000
 # (the atol covers entries that cancel toward 0); the loss: STEP_RTOL.
 STEP_RTOL = 1e-4
 STEP_ATOL_FRAC = 1e-5
+# the general family's step: its contrastive terms pass the SpMM outputs
+# through exp(cos / tau) with tau down to 0.1 (NCL), which multiplies
+# the sum-order differences of the embeddings by up to 1 / tau = 10 in
+# the gradients (NCL's read 1.3e-5 of max|g| on an H100)
+GENERAL_STEP_ATOL_FRAC = 1e-4
 
 
 def log(msg: str):
@@ -154,24 +176,32 @@ def time_cuda_ms(fn) -> float:
     return time_ms(fn, torch.device("cuda"))
 
 
-def device_us_by_kernel(fn, reps: int = 20) -> dict:
+def device_us_by_kernel(fn, reps: int = 20, kernels: int = 2,
+                        sessions: int = 4) -> dict:
     """Device µs per call of ``fn`` by kernel name (``torch.profiler``,
     ``reps`` calls after one warm-up, the L2 left warm): each kernel's
     time over the records the profiler kept of it (in a long process it
-    drops some; each call runs each of its kernels once); empty where
-    the profiler records no device activity."""
+    drops some, at times all of a kernel's; each call runs each of its
+    kernels once).  A session that records fewer than ``kernels`` names
+    is run again, up to ``sessions`` in all; empty where the profiler
+    records no device activity."""
     from recbole_gnn_tpu_torch.diag.timing import kernel_records
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, records = kernel_records(prof)
-    for name, n in records.items():
-        if n != reps:
-            log(f"profiler: {n} records of {name} for {reps} calls")
+    for attempt in range(sessions):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, records = kernel_records(prof)
+        for name, n in records.items():
+            if n != reps:
+                log(f"profiler: {n} records of {name} for {reps} calls")
+        if len(total) >= kernels:
+            break
+        log(f"profiler: session {attempt + 1} recorded {sorted(total)}; "
+            f"{kernels} kernels expected")
     return {name: us / records[name] for name, us in total.items()}
 
 
@@ -728,7 +758,8 @@ STEP_KERNELS = {
 
 
 def time_train_steps(trainer, model, state: dict, host_batches: list,
-                     dev, impl: str) -> tuple[list[float], dict]:
+                     dev, impl: str, mode: int = 0
+                     ) -> tuple[list[float], dict]:
     """Host-clock times (ms) of the training steps on ``host_batches``
     after 5 warm-up steps, each synchronised, from the trained
     checkpoint ``state``; a step is what ``fit`` does per batch: the
@@ -743,15 +774,17 @@ def time_train_steps(trainer, model, state: dict, host_batches: list,
     from recbole_gnn_tpu_torch.diag.timing import kernel_records
     from recbole_gnn_tpu_torch.eval.evaluator import to_device
     from recbole_gnn_tpu_torch.train.checkpoint import params_from_numpy
+    from recbole_gnn_tpu_torch.train.optim import tree_leaves
     params = params_from_numpy(state["params"], dev)
-    for p in params.values():
+    for p in tree_leaves(params):
         p.requires_grad_(True)
     opt_state = params_from_numpy(state["opt_state"], dev)
+    extras = params_from_numpy(state.get("extras") or {}, dev)
     rng = torch.Generator().manual_seed(SEED)
 
     def step(b):
-        trainer.train_step(params, opt_state, model.consts, {},
-                           to_device(b, dev), rng)
+        trainer.train_step(params, opt_state, model.consts, extras,
+                           to_device(b, dev), rng, mode)
 
     times = []
     for b in host_batches[:5 + TIMED_STEPS]:
@@ -966,10 +999,14 @@ def serve_path(run: dict, tmp: str, impl: str, dev,
                batches=BATCHES) -> dict:
     """Export the trained checkpoint and serve it, every counter set to
     0 just before and read just after; the export must launch the
-    impl's forward kernels once per layer, serving none."""
+    impl's forward kernels once per layer, serving none.  The exported
+    tables are held against a plain propagation: the mean of layers
+    0..N_LAYERS over the graph (LightGCN's and SGL's evaluation)."""
     from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
     from recbole_gnn_tpu_torch.serve import RecServer, export_artifact
-    art = os.path.join(tmp, f"lightgcn-{impl}.npz")
+    model_name = str(run["config"]["model"])
+    art = os.path.join(tmp, f"{model_name.lower()}-{impl}.npz")
+    tag = impl if model_name == "LightGCN" else f"{model_name} {impl}"
     reset_counts()
     t0 = time.perf_counter()
     export_artifact(run["config"], art, checkpoint_path=run["ckpt"],
@@ -1000,16 +1037,16 @@ def serve_path(run: dict, tmp: str, impl: str, dev,
     check_recommendations(srv, http_uids, http_idx,
                           np.array(out["scores"], dtype=np.float32))
     counts = read_counts()
-    log(f"[{impl}] export: {export_s:.2f} s, launches {export_counts}")
-    log(f"[{impl}] recommend latency (ms, median of 5, k=10): "
+    log(f"[{tag}] export: {export_s:.2f} s, launches {export_counts}")
+    log(f"[{tag}] recommend latency (ms, median of 5, k=10): "
         + ", ".join(f"B={b}: {ms:.2f}" for b, ms in latency.items()))
-    log(f"[{impl}] http: {len(out['items'])} users answered")
+    log(f"[{tag}] http: {len(out['items'])} users answered")
     fwd = {"pallas": ("segment_spmm",), "ell": ("ell_spmm",),
            "xla": ("row_gather", "block_segment_sum")}[impl]
     want = {k: (N_LAYERS if k in fwd else 0) for k in counts}
     if export_counts != want or counts != want:
         raise AssertionError(
-            f"[{impl}] serving launched {export_counts} in the export and "
+            f"[{tag}] serving launched {export_counts} in the export and "
             f"{counts} on the whole path; expected {want} for both")
 
     # the exported (trained) tables against a plain propagation
@@ -1025,10 +1062,350 @@ def serve_path(run: dict, tmp: str, impl: str, dev,
     with np.load(art, allow_pickle=False) as z:
         exported = np.concatenate([z["user_table"], z["item_table"]])
     table_err = float(np.abs(exported - final).max())
-    log(f"[{impl}] export vs plain propagation: max_abs_err="
+    log(f"[{tag}] export vs plain propagation: max_abs_err="
         f"{table_err:.3e} (max |table| {np.abs(final).max():.3e})")
     np.testing.assert_allclose(exported, final, rtol=1e-4, atol=1e-7)
     return counts
+
+
+# -- the general family ------------------------------------------------------
+
+GENERAL_MODELS = ("SGL", "NGCF", "NCL", "HMLET", "LightGCL", "DirectAU",
+                  "NeuMF", "SSL4REC")
+# the deliberate departures from each model's published yaml, each with
+# its reason (logged with the run)
+GENERAL_OVERRIDES = {
+    "NCL": ({"warm_up_step": 0},
+            "ProtoNCE is left out for the first warm_up_step (20) epochs; "
+            "at 0 it is on the path"),
+    "HMLET": ({"warm_up_epochs": 0},
+              "the gates are frozen and the temperature held for the first "
+              "warm_up_epochs (50); at 0 epoch 1 trains the gates and "
+              "decays the temperature"),
+    "DirectAU": ({"encoder": "LightGCN"},
+                 "the MF encoder runs no graph (its parity is checked on the "
+                 "CPU); the LightGCN encoder puts its SpMMs on the path"),
+}
+# HMLET: epoch 0 frozen gates (mode 0), epoch 1 trained ones (mode 1)
+GENERAL_EPOCHS = {"HMLET": 2}
+# K2 launches per training step (as many K2T) and per evaluation, at
+# each model's published depth: SGL 3 propagations x 3 layers; NGCF 3
+# BiGNN layers; NCL max(3, 2 x 1) layers; HMLET 4 layers + 2 gated
+# non-linear branches; LightGCL 2 layers x 2 rectangular graphs;
+# DirectAU's LightGCN encoder 3 layers; NeuMF and SSL4REC no graph
+GENERAL_STEP_SPMMS = {"SGL": 9, "NGCF": 3, "NCL": 3, "HMLET": 6,
+                      "LightGCL": 4, "DirectAU": 3, "NeuMF": 0, "SSL4REC": 0}
+GENERAL_EVAL_SPMMS = {"SGL": 3, "NGCF": 3, "NCL": 3, "HMLET": 6,
+                      "LightGCL": 4, "DirectAU": 3, "NeuMF": 0, "SSL4REC": 0}
+
+
+def general_config(tmp: str, model: str, impl: str = "ell", **over) -> dict:
+    """The model at its published yaml settings on the sparse graph,
+    with its GENERAL_OVERRIDES and ``over``; each (model, impl) in its
+    own checkpoint directory."""
+    ck = os.path.join(tmp, f"{model}-{impl}")
+    cd = {"data_path": tmp, "checkpoint_dir": ck, "enable_sparse": True,
+          "sparse_spmm_impl": impl, "epochs": GENERAL_EPOCHS.get(model, 1),
+          "eval_step": 1, "seed": SEED, "state": "ERROR",
+          "save_dataset": True,
+          "metrics_log_path": os.path.join(ck, "train.jsonl")}
+    cd.update(GENERAL_OVERRIDES.get(model, ({}, ""))[0])
+    cd.update(over)
+    return cd
+
+
+def general_step_vs_plain(model, params: dict, extras: dict, batch: dict,
+                          mode: int, want: dict, tag: str) -> dict:
+    """One training step of ``model`` on the kernels against the same
+    step with every sparse SpMM replaced by the plain ``spmm_coo`` over
+    the same graph and weights (the views', the dropped edges'),
+    differentiated by autograd; same params, extras, batch and draws (a
+    card generator seeded alike for both).  The kernel step must launch
+    ``want``, the plain step nothing.  Gradients of every param leaf:
+    |Δ| ≤ STEP_RTOL·|g| + GENERAL_STEP_ATOL_FRAC·max|g| with max|g| over
+    all leaves (a gate's bias before its BatchNorm has a true gradient
+    of 0, so its own maximum is rounding noise); the loss: STEP_RTOL."""
+    import importlib
+    from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
+    # by module path: the ops package re-exports a function named spmm
+    spmm_mod = importlib.import_module("recbole_gnn_tpu_torch.ops.spmm")
+    lightgcl_mod = importlib.import_module(
+        "recbole_gnn_tpu_torch.models.general.lightgcl")
+    from recbole_gnn_tpu_torch.train.optim import tree_leaves, tree_map
+    dev = batch["user_id"].device
+
+    def loss_and_grads():
+        p = tree_map(lambda v: v.detach().clone().requires_grad_(True),
+                     params)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        loss, _ = model.calculate_loss(p, model.consts, extras, batch, gen,
+                                       mode=mode)
+        leaves = tree_leaves(p)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(v) if g is None else g
+                 for v, g in zip(leaves, grads)]
+        torch.cuda.synchronize()
+        return loss.detach(), grads
+
+    reset_counts()
+    k_loss, k_grads = loss_and_grads()
+    got = {k: v for k, v in read_counts().items() if v}
+    if got != want:
+        raise AssertionError(f"[{tag}] the kernel step launched {got}, "
+                             f"expected {want}")
+
+    def plain(graph, x, weight_grad=False):
+        return spmm_coo(graph.src, graph.dst, graph.weight, x, graph.n_nodes)
+
+    kernel_spmm = (spmm_mod.spmm, lightgcl_mod.spmm)
+    spmm_mod.spmm = lightgcl_mod.spmm = plain
+    try:
+        reset_counts()
+        p_loss, p_grads = loss_and_grads()
+        if any(read_counts().values()):
+            raise AssertionError(f"[{tag}] the plain step launched a kernel")
+    finally:
+        spmm_mod.spmm, lightgcl_mod.spmm = kernel_spmm
+    out = {"loss_kernel": float(k_loss), "loss_plain": float(p_loss),
+           "loss_abs_err": float((k_loss - p_loss).abs())}
+    if not out["loss_abs_err"] <= STEP_RTOL * abs(out["loss_plain"]):
+        raise AssertionError(f"[{tag}] kernel step loss differs from plain: "
+                             f"{out}")
+    g_max = max(float(g.abs().max()) for g in p_grads if g.numel())
+    worst = 0.0
+    for i, (kg, pg) in enumerate(zip(k_grads, p_grads)):
+        err = (kg - pg).abs()
+        lim = STEP_RTOL * pg.abs() + GENERAL_STEP_ATOL_FRAC * g_max
+        if not (bool((err <= lim).all()) and bool(torch.isfinite(kg).all())):
+            raise AssertionError(
+                f"[{tag}] kernel step gradient of leaf {i} differs from "
+                f"plain: max |err| {float(err.max()):.3e}, worst excess "
+                f"{float((err - lim).max()):.3e}")
+        worst = max(worst, float(err.max()))
+    out.update(grad_max_abs_err=worst, grad_max_abs=g_max,
+               grad_leaves=len(p_grads))
+    return out
+
+
+def general_path(tmp: str, model_name: str, dev) -> dict:
+    """Train ``model_name`` through ``run_recbole_gnn_tpu`` on ``ell``
+    with every counter set to 0 just before and read just after; check
+    the run and its launch counts; time its steps and an evaluation;
+    for a graph model one step on the kernels against the plain one."""
+    from recbole_gnn_tpu_torch.config import Config
+    from recbole_gnn_tpu_torch.eval.evaluator import to_device
+    from recbole_gnn_tpu_torch.models import get_model
+    from recbole_gnn_tpu_torch.ops.ell_spmm import _layout_args
+    from recbole_gnn_tpu_torch.quick_start import (create_dataset,
+                                                   data_preparation,
+                                                   run_recbole_gnn_tpu)
+    from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                       params_from_numpy)
+    from recbole_gnn_tpu_torch.train.trainer import Trainer
+    cd = general_config(tmp, model_name)
+    tag = f"{model_name} ell"
+    epochs = cd["epochs"]
+    if model_name in GENERAL_OVERRIDES:
+        over, why = GENERAL_OVERRIDES[model_name]
+        log(f"[{tag}] override {json.dumps(over)}: {why}")
+    torch.cuda.reset_peak_memory_stats()
+    builds0 = _layout_args.builds
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_recbole_gnn_tpu(model=model_name, dataset="gowalla_shape",
+                              config_dict=cd, saved=True, verbose=False)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    layout_builds = _layout_args.builds - builds0
+    peak_bytes = torch.cuda.max_memory_allocated()
+    with open(cd["metrics_log_path"]) as f:
+        events = [json.loads(line) for line in f]
+    config = Config(model=model_name, dataset="gowalla_shape", config_dict=cd)
+    (train_loader, train_ds), (valid_loader, _), _ = data_preparation(
+        config, create_dataset(config))
+    model = get_model(model_name)(config, train_ds, dev)
+    steps = len(train_loader)
+    epoch_events = [e for e in events if e["event"] == "train_epoch"]
+    valids = [e for e in events if e["event"] == "valid"]
+    losses = [e["loss"] for e in epoch_events]
+    log(f"[{tag}] train: {steps} steps per epoch of "
+        f"{train_loader.batch_size} pairs; {epochs} epochs in {wall:.1f} s "
+        "end to end")
+    for e in epoch_events:
+        log(f"[{tag}] train epoch {e['epoch']}: loss {e['loss']:.6f}, "
+            f"{e['seconds']:.3f} s, {e['examples_per_s']:.0f} examples/s")
+    for e in valids:
+        log(f"[{tag}] valid epoch {e['epoch']}: {e['seconds']:.3f} s, "
+            f"recall@10 {e['recall@10']:.5f}, ndcg@10 {e['ndcg@10']:.5f}")
+    log(f"[{tag}] test: {res['test_result']}")
+    if len(losses) != epochs or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[{tag}] training losses: {losses}")
+    for e in valids:
+        check_metrics(f"[{tag}] valid epoch {e['epoch']}",
+                      {k: v for k, v in e.items() if "@" in k})
+    check_metrics(f"[{tag}] test", res["test_result"])
+    n_evals = len(valids) + 1
+    prop = GENERAL_STEP_SPMMS[model_name] * epochs * steps
+    want = {k: 0 for k in counters()}
+    want.update(ell_spmm=prop + GENERAL_EVAL_SPMMS[model_name] * n_evals,
+                ell_spmm_transpose=prop)
+    log(f"[{tag}] train launches: {counts} (expected {want}: "
+        f"{GENERAL_STEP_SPMMS[model_name]} K2 and as many K2T per step x "
+        f"{epochs} x {steps} steps + {GENERAL_EVAL_SPMMS[model_name]} K2 x "
+        f"{n_evals} evaluations)")
+    if counts != want:
+        raise AssertionError(f"[{tag}] training launch counts differ")
+    log(f"[{tag}] layouts whose kernel arguments were made in the run "
+        f"(_layout_args.builds): {layout_builds}")
+    if model_name == "SGL":
+        # the graph's two layouts once, then per epoch each view's two
+        # (ED: one layout serves all three layers), never per step
+        if layout_builds != 2 + 2 * 2 * epochs:
+            raise AssertionError(
+                f"[{tag}] {layout_builds} layout argument builds in "
+                f"{epochs} epoch(s) of {steps} steps; expected "
+                f"{2 + 4 * epochs}")
+    log(f"[{tag}] train peak device memory (max_memory_allocated): "
+        f"{peak_bytes} bytes ({peak_bytes / 2**30:.3f} GiB)")
+
+    ckpt = os.path.join(cd["checkpoint_dir"],
+                        f"{model_name}-gowalla_shape.ckpt")
+    state = load_checkpoint(ckpt)
+    mode = int(model.loss_mode(epochs - 1))
+    trainer = Trainer(config, model)
+    it = iter(train_loader)
+    host_batches = [next(it) for _ in range(5 + TIMED_STEPS + 10)]
+    step_ms, prof = time_train_steps(trainer, model, state, host_batches,
+                                     dev, "ell", mode)
+    log(f"[{tag}] train step (host clock, synchronised, {TIMED_STEPS} steps "
+        f"after 5 warm-up, loss mode {mode}): median "
+        f"{np.median(step_ms):.3f} ms, min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}")
+    log(f"[{tag}] train step profile (torch.profiler, 10 steps): "
+        + (json.dumps(prof) if prof else "not measured (no device "
+           "activity recorded)"))
+    params = params_from_numpy(state["params"], dev)
+    extras = params_from_numpy(state.get("extras") or {}, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = trainer.evaluator.evaluate(params, extras, valid_loader)
+    eval_s = time.perf_counter() - t0
+    log(f"[{tag}] full-sort evaluation of {len(valid_loader.eval_users)} "
+        f"valid users x {model.n_items} items (host clock): {eval_s:.3f} s")
+    check_metrics(f"[{tag}] re-evaluation", result)
+    step_err = None
+    if GENERAL_STEP_SPMMS[model_name]:
+        n = GENERAL_STEP_SPMMS[model_name]
+        batch = to_device(next(iter(train_loader)), dev)
+        step_err = general_step_vs_plain(
+            model, params, extras, batch, mode,
+            {"ell_spmm": n, "ell_spmm_transpose": n}, tag)
+        log(f"[{tag}] step vs plain (loss mode {mode}): " + ", ".join(
+            f"{k} {v:.6e}" for k, v in step_err.items()))
+    summary = {"epochs": epochs, "steps_per_epoch": steps,
+               "batch": train_loader.batch_size,
+               "epoch_s": [e["seconds"] for e in epoch_events],
+               "examples_per_s": [e["examples_per_s"] for e in epoch_events],
+               "losses": losses, "run_s": wall,
+               "step_median_ms": float(np.median(step_ms)),
+               "device_ms_per_step": prof.get("device_ms_per_step"),
+               "device_busy_share": prof.get("device_busy_share"),
+               "peak_bytes": peak_bytes, "eval_s": eval_s,
+               "valid_recall@10": [e["recall@10"] for e in valids],
+               "test": res["test_result"], "layout_builds": layout_builds,
+               "step_vs_plain": step_err}
+    return {"config": config, "ckpt": ckpt,
+            "graph": model.consts.get("graph"), "params": params,
+            "extras": extras, "counts": counts, "profile": prof,
+            "summary": summary}
+
+
+def general_extra_steps(tmp: str, runs: dict, dev) -> dict:
+    """The step checks of the general family's other impls, on the
+    trained params: NGCF with ``node_dropout: 0.1`` on an ell config
+    (each step re-weights the graph, which then runs ``xla``: D2 and D1
+    once per layer forward and back) and LightGCL on ``pallas`` (K1 and
+    K1T on its rectangular graphs)."""
+    from recbole_gnn_tpu_torch.config import Config
+    from recbole_gnn_tpu_torch.eval.evaluator import to_device
+    from recbole_gnn_tpu_torch.models import get_model
+    from recbole_gnn_tpu_torch.quick_start import (create_dataset,
+                                                   data_preparation)
+    out = {}
+    for name, model_name, impl, over, want in (
+            ("NGCF xla", "NGCF", "ell", {"node_dropout": 0.1},
+             {"row_gather": 6, "block_segment_sum": 6}),
+            ("LightGCL pallas", "LightGCL", "pallas", {},
+             {"segment_spmm": 4, "segment_spmm_transpose": 4})):
+        cd = general_config(tmp, model_name, impl, **over)
+        config = Config(model=model_name, dataset="gowalla_shape",
+                        config_dict=cd)
+        (train_loader, train_ds), _, _ = data_preparation(
+            config, create_dataset(config))
+        model = get_model(model_name)(config, train_ds, dev)
+        run = runs[model_name]
+        batch = to_device(next(iter(train_loader)), dev)
+        out[name] = general_step_vs_plain(model, run["params"], run["extras"],
+                                          batch, 0, want, name)
+        log(f"[{name}] step vs plain: " + ", ".join(
+            f"{k} {v:.6e}" for k, v in out[name].items()))
+        del model
+    return out
+
+
+def general_main(tmp: str, out_path: str) -> int:
+    """The general-models phase (a child process of :func:`main`, on
+    the data ``main`` wrote in ``tmp``): each model's path, SGL's
+    serving, NeuMF's refused export and the other impls' step checks;
+    writes the launch counts and step profiles by path to
+    ``out_path``."""
+    from recbole_gnn_tpu_torch.ops import cuda_build
+    from recbole_gnn_tpu_torch.serve import export_artifact
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cuda_build.build(SOURCES)              # built by main: loads only
+    paths, profiles, general = {}, {}, {}
+    for model_name in GENERAL_MODELS:
+        run = general_path(tmp, model_name, dev)
+        paths[f"{model_name.lower()}_train"] = run["counts"]
+        profiles[model_name] = run["profile"]
+        general[model_name] = run
+    paths["sgl_serve"] = serve_path(general["SGL"], tmp, "ell", dev)
+    try:
+        export_artifact(general["NeuMF"]["config"],
+                        os.path.join(tmp, "neumf.npz"),
+                        checkpoint_path=general["NeuMF"]["ckpt"], device=dev)
+    except ValueError as e:
+        log(f"[NeuMF] export refused, as the JAX package refuses it: {e}")
+    else:
+        raise AssertionError("NeuMF's export did not raise")
+    general_steps = general_extra_steps(tmp, general, dev)
+    log(json.dumps({"general_models": {
+        m: r["summary"] for m, r in general.items()},
+        "general_step_vs_plain_other_impls": general_steps}))
+    with open(out_path, "w") as f:
+        json.dump({"paths": paths, "profiles": profiles}, f)
+    return 0
+
+
+def run_general_phase(tmp: str) -> dict:
+    """Run :func:`general_main` in a child process on ``tmp``'s data;
+    its output goes to this process's; a failure there fails here."""
+    out_path = os.path.join(tmp, "general_phase.json")
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--general", tmp, out_path])
+    if r.returncode != 0:
+        raise AssertionError(f"the general-models phase failed "
+                             f"(exit {r.returncode})")
+    log(f"general-models phase: {time.perf_counter() - t0:.1f} s")
+    with open(out_path) as f:
+        return json.load(f)
 
 
 # -- main -------------------------------------------------------------------
@@ -1379,6 +1756,14 @@ def main() -> int:
                 model.propagate(params, model.consts, {})
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
+
+        # 7. the general family on ell, each at its published settings,
+        # after every profiled kernel split above and in a process of
+        # its own: each torch.profiler session of a process leaves its
+        # later ones fewer device records
+        general = run_general_phase(tmp)
+        paths.update(general["paths"])
+        profiles.update(general["profiles"])
     log(f"slice degrees: max real {int(real.max())} (row {hub}, D1 block "
         f"{hub // 64} holds {hub_edges} edges), padding tail {tail} on row "
         f"{n - 1} (real degree {int(real[-1])}); transpose: max "
@@ -1503,9 +1888,12 @@ def main() -> int:
                 "in_step_us_per_launch": in_step("ell", "ell_spmm"),
                 "in_step_us_per_launch_by_path": {
                     p: in_step(p, "ell_spmm")
-                    for p in ("ell", "SimGCL", "XSimGCL")}}
+                    for p in ("ell", "SimGCL", "XSimGCL") + tuple(
+                        m for m in GENERAL_MODELS if GENERAL_STEP_SPMMS[m])}}
 
-    ell_paths = ("ell_train", "ell_serve", "simgcl_train", "xsimgcl_train")
+    ell_paths = ("ell_train", "ell_serve", "simgcl_train", "xsimgcl_train",
+                 "sgl_serve") + tuple(f"{m.lower()}_train"
+                                      for m in GENERAL_MODELS)
     print(json.dumps({"kernels": [
         {"name": "segment_spmm", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
@@ -1588,4 +1976,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--general":
+        sys.exit(general_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -140,8 +140,10 @@ class Config:
         """The value of ``key``, or ``default`` where it is missing,
         empty or zero: the JAX package's read of the keys whose falsy
         value means "use the default" (``metrics``, ``learning_rate``,
-        ``valid_metric``, ``learner``, ``eval_step``); :meth:`get` keeps
-        a falsy value."""
+        ``valid_metric``, ``learner``, ``eval_step``, and the models'
+        list and string settings such as ``hidden_size_list``,
+        ``gate_layer_ids`` or SGL's ``type``); :meth:`get` keeps a falsy
+        value."""
         return self._data.get(key) or default
 
     def __setitem__(self, key, value):

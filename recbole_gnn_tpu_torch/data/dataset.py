@@ -305,6 +305,16 @@ class Dataset:
         return (np.asarray(self.inter[self.uid_field], dtype=np.int64),
                 np.asarray(self.inter[self.iid_field], dtype=np.int64))
 
+    def history_matrix(self) -> dict[int, np.ndarray]:
+        """uid → the item ids it interacted with in this table."""
+        users, items = self.user_item_arrays()
+        order = np.argsort(users, kind="stable")
+        u_sorted, i_sorted = users[order], items[order]
+        bounds = np.searchsorted(u_sorted, np.arange(self.n_users + 1))
+        return {u: i_sorted[bounds[u]:bounds[u + 1]]
+                for u in range(self.n_users)
+                if bounds[u + 1] > bounds[u]}
+
 
 class GeneralGraphDataset(Dataset):
     """Adds bipartite-graph construction (reference: dataset.py:24-106)."""

@@ -3,7 +3,8 @@
 Port of ``recbole_gnn_tpu/models/__init__.py``.  The table lists every
 model of the JAX package, because ``Config`` needs ``model_info`` for
 each of them; ``get_model`` returns only the models ported so far and
-names the ROADMAP item that ports each of the others.
+names the ROADMAP item that ports each of the others (the session and
+social families).
 """
 
 from __future__ import annotations
@@ -29,8 +30,6 @@ _G = ModelType.GENERAL
 _S = ModelType.SEQUENTIAL
 _SO = ModelType.SOCIAL
 
-_GENERAL_PLAIN = "ROADMAP §1 Slice B item 3 (general models without new ops)"
-_GENERAL_OPS = "ROADMAP §1 Slice B item 4 (general models with extra ops)"
 _SESSION = "ROADMAP §1 Slice C items 5-6 (session data and models)"
 _SOCIAL = "ROADMAP §1 Slice D item 7 (social models)"
 
@@ -44,19 +43,15 @@ def _reg(name, module, class_name, mtype, dataset_class, pending=None):
 
 # -- general graph recommenders ----------------------------------------
 _reg("LightGCN", "general.lightgcn", "LightGCN", _G, "GeneralGraphDataset")
-_reg("NGCF", "general.ngcf", "NGCF", _G, "GeneralGraphDataset", _GENERAL_PLAIN)
-_reg("SGL", "general.sgl", "SGL", _G, "GeneralGraphDataset", _GENERAL_OPS)
+_reg("NGCF", "general.ngcf", "NGCF", _G, "GeneralGraphDataset")
+_reg("SGL", "general.sgl", "SGL", _G, "GeneralGraphDataset")
 _reg("SimGCL", "general.simgcl", "SimGCL", _G, "GeneralGraphDataset")
 _reg("XSimGCL", "general.xsimgcl", "XSimGCL", _G, "GeneralGraphDataset")
-_reg("NCL", "general.ncl", "NCL", _G, "GeneralGraphDataset", _GENERAL_OPS)
-_reg("HMLET", "general.hmlet", "HMLET", _G, "GeneralGraphDataset",
-     _GENERAL_OPS)
-_reg("DirectAU", "general.directau", "DirectAU", _G, "GeneralGraphDataset",
-     _GENERAL_PLAIN)
-_reg("LightGCL", "general.lightgcl", "LightGCL", _G, "GeneralGraphDataset",
-     _GENERAL_OPS)
-_reg("SSL4REC", "general.ssl4rec", "SSL4REC", _G, "GeneralGraphDataset",
-     _GENERAL_PLAIN)
+_reg("NCL", "general.ncl", "NCL", _G, "GeneralGraphDataset")
+_reg("HMLET", "general.hmlet", "HMLET", _G, "GeneralGraphDataset")
+_reg("DirectAU", "general.directau", "DirectAU", _G, "GeneralGraphDataset")
+_reg("LightGCL", "general.lightgcl", "LightGCL", _G, "GeneralGraphDataset")
+_reg("SSL4REC", "general.ssl4rec", "SSL4REC", _G, "GeneralGraphDataset")
 
 # -- sequential session-graph recommenders -----------------------------
 _reg("SRGNN", "sequential.srgnn", "SRGNN", _S, "SessionGraphDataset", _SESSION)
@@ -75,8 +70,7 @@ _reg("SEPT", "social.sept", "SEPT", _SO, "SocialDataset", _SOCIAL)
 
 # -- RecBole fallback baselines -----------------------------------------
 _reg("BPR", "general.bpr", "BPR", _G, "GeneralGraphDataset")
-_reg("NeuMF", "general.neumf", "NeuMF", _G, "GeneralGraphDataset",
-     _GENERAL_PLAIN)
+_reg("NeuMF", "general.neumf", "NeuMF", _G, "GeneralGraphDataset")
 _reg("GRU4Rec", "sequential.gru4rec", "GRU4Rec", _S, "SequentialDataset",
      _SESSION)
 _reg("NARM", "sequential.narm", "NARM", _S, "SequentialDataset", _SESSION)

@@ -1,18 +1,29 @@
-"""Loss library — BPR, EmbLoss and the masked InfoNCE (port of the part
-of ``recbole_gnn_tpu/models/losses.py`` the general models ported so
-far use).
+"""Loss library — BPR, EmbLoss, the InfoNCE variants and DirectAU's
+alignment / uniformity (port of the general models' part of
+``recbole_gnn_tpu/models/losses.py``).
 
 Semantics match the [recbole] losses the reference imports: BPRLoss
 with gamma = 1e-10, EmbLoss with its ``require_pow`` branch; the
 pairwise losses take an optional per-row ``weight`` so that the
 weight-0 rows the loaders pad the last batch with contribute nothing.
 ``masked_unique`` / ``cl_nce_masked`` are SimGCL's and XSimGCL's
-contrastive loss over a batch's unique ids.
+contrastive loss over a batch's unique ids; ``info_nce`` takes its
+negatives from a whole table (SGL, NCL), through a chunked logsumexp
+when the (B, n) logits would exceed ``_NCE_CHUNK_ENTRIES`` entries.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from recbole_gnn_tpu_torch.models.init import l2_normalize as _l2n
+
+# (B, n) InfoNCE denominators above this many entries stream through
+# :func:`_chunked_lse` instead of materialising the logits (SGL's
+# all-node negatives at web scale would otherwise build a B × 1.1M
+# buffer); the JAX package's threshold
+_NCE_CHUNK_ENTRIES = 1 << 28
 
 
 def _wmean(x: torch.Tensor, weight: torch.Tensor | None) -> torch.Tensor:
@@ -68,11 +79,6 @@ def reg_loss_l2(params_leaves: list[torch.Tensor]) -> torch.Tensor:
     return sum((p * p).sum() for p in params_leaves)
 
 
-def _l2n(x: torch.Tensor) -> torch.Tensor:
-    """Smooth L2 normalise: x / sqrt(Σx² + 1e-12), finite gradient at 0."""
-    return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
-
-
 def masked_unique(ids: torch.Tensor, size: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(the sorted unique ids padded with 0 to ``size``, the mask
@@ -104,3 +110,87 @@ def cl_nce_masked(view1: torch.Tensor, view2: torch.Tensor,
     if reduction == "sum":
         return loss.sum()
     return loss.sum() / torch.clamp(mask.sum().to(loss.dtype), min=1.0)
+
+
+def _chunk_lse(v1: torch.Tensor, c: torch.Tensor, tau: float
+               ) -> torch.Tensor:
+    return torch.logsumexp(torch.matmul(v1, c.T) / tau, dim=-1)
+
+
+def _chunked_lse(v1: torch.Tensor, av2: torch.Tensor, tau: float
+                 ) -> torch.Tensor:
+    """logsumexp of v1 @ av2ᵀ / tau over row chunks of ``av2``, as the
+    JAX package's ``_chunked_lse`` chunks it (at least 1,024 rows, about
+    ``_NCE_CHUNK_ENTRIES`` entries per block): each chunk's logsumexp
+    is checkpointed, so the backward recomputes its block instead of
+    keeping every one, and the chunks combine by one more logsumexp."""
+    b, n = v1.shape[0], av2.shape[0]
+    rows = min(max(1024, _NCE_CHUNK_ENTRIES // max(1, b)), n)
+    parts = [checkpoint(_chunk_lse, v1, av2[lo:lo + rows], tau,
+                        use_reentrant=False)
+             for lo in range(0, n, rows)]
+    return torch.logsumexp(torch.stack(parts, dim=-1), dim=-1)
+
+
+def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
+             weight: torch.Tensor | None = None,
+             all_view2: torch.Tensor | None = None,
+             reduction: str = "sum") -> torch.Tensor:
+    """InfoNCE between aligned rows of two views: the positive is
+    cos(view1ᵢ, view2ᵢ), the negatives every row of ``all_view2``
+    (default view2), all L2-normalised inside; 'sum' (SGL, NCL) or
+    weighted 'mean'."""
+    v1 = _l2n(view1)
+    v2 = _l2n(view2)
+    av2 = v2 if all_view2 is None else _l2n(all_view2)
+    pos = (v1 * v2).sum(-1) / temperature
+    if v1.shape[0] * av2.shape[0] > _NCE_CHUNK_ENTRIES:
+        lse = _chunked_lse(v1, av2, temperature)
+    else:
+        lse = torch.logsumexp(torch.matmul(v1, av2.T) / temperature, dim=-1)
+    loss = lse - pos
+    if reduction == "sum":
+        return _wsum(loss, weight)
+    return _wmean(loss, weight)
+
+
+def batch_softmax_loss(user_emb: torch.Tensor, item_emb: torch.Tensor,
+                       temperature: float,
+                       weight: torch.Tensor | None = None) -> torch.Tensor:
+    """In-batch sampled softmax (SSL4REC's rec loss): positives on the
+    diagonal, the batch's other (unpadded) items as negatives."""
+    u = _l2n(user_emb)
+    i = _l2n(item_emb)
+    pos = (u * i).sum(-1) / temperature
+    logits = torch.matmul(u, i.T) / temperature
+    if weight is not None:
+        logits = logits.masked_fill(~(weight[None, :] > 0), float("-inf"))
+    loss = torch.logsumexp(logits, dim=-1) - pos
+    return _wmean(loss, weight)
+
+
+def alignment_loss(x: torch.Tensor, y: torch.Tensor,
+                   weight: torch.Tensor | None = None,
+                   alpha: int = 2) -> torch.Tensor:
+    """DirectAU alignment: mean ‖x − y‖₂^α over the pairs."""
+    d = torch.sqrt(torch.clamp(((x - y) ** 2).sum(-1), min=1e-24)) ** alpha
+    return _wmean(d, weight)
+
+
+def uniformity_loss(x: torch.Tensor, weight: torch.Tensor | None = None,
+                    t: float = 2.0) -> torch.Tensor:
+    """DirectAU uniformity: log mean exp(−t·‖xᵢ − xⱼ‖²) over the pairs
+    i < j (``torch.pdist``'s pairs), the squared distances as
+    ‖xᵢ‖² + ‖xⱼ‖² − 2xᵢ·xⱼ clamped at 0, as the JAX package forms them."""
+    sq = (x * x).sum(-1)
+    d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * torch.matmul(x, x.T),
+                     min=0.0)
+    iu = torch.triu_indices(x.shape[0], x.shape[0], offset=1,
+                            device=x.device)
+    vals = torch.exp(-t * d2[iu[0], iu[1]])
+    if weight is not None:
+        wpair = weight[iu[0]] * weight[iu[1]]
+        mean = (vals * wpair).sum() / torch.clamp(wpair.sum(), min=1.0)
+    else:
+        mean = vals.mean()
+    return torch.log(torch.clamp(mean, min=1e-24))

@@ -452,7 +452,11 @@ def _layout_args(meta: EllMeta, device: torch.device) -> tuple:
     args = (*(t.data_ptr() for t in tensors), meta.rest_node.shape[0],
             table(*meta.ks), table(*meta.rows), nb)
     meta.launch = (device, tensors, args)
+    _layout_args.builds += 1
     return args
+
+
+_layout_args.builds = 0
 
 
 def ell_spmm(meta: EllMeta, x: torch.Tensor) -> torch.Tensor:

@@ -65,7 +65,8 @@ SPMM_PRECISIONS = ("packed", "f32x2", "bf16")
 __all__ = ["Graph", "BipartiteDenseGraph", "CooSpmmFunction",
            "EllSpmmFunction", "build_graph",
            "build_dense_bipartite", "spmm", "spmm_any", "spmm_coo",
-           "spmm_dense_bipartite", "xla_spmm", "SPMM_IMPLS",
+           "spmm_dense_bipartite", "spmm_dense_bipartite_dropout",
+           "dense_dropout_masks", "xla_spmm", "SPMM_IMPLS",
            "SPMM_PRECISIONS"]
 
 
@@ -419,6 +420,30 @@ def spmm_dense_bipartite(graph: BipartiteDenseGraph,
     a = graph.a if graph.a.dtype == x.dtype else graph.a.to(x.dtype)
     xu, xi = x[:graph.n_users], x[graph.n_users:]
     return torch.cat([torch.matmul(a, xi), torch.matmul(a.T, xu)], dim=0)
+
+
+def dense_dropout_masks(gen: torch.Generator, graph: BipartiteDenseGraph,
+                        drop_p: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two keep-masks of :func:`spmm_dense_bipartite_dropout`, one
+    per direction, each Bernoulli(1 − drop_p) over the block."""
+    shape = tuple(graph.a.shape)
+    return tuple(torch.rand(shape, generator=gen, device=gen.device)
+                 < 1.0 - drop_p for _ in range(2))
+
+
+def spmm_dense_bipartite_dropout(graph: BipartiteDenseGraph, x: torch.Tensor,
+                                 masks: tuple[torch.Tensor, torch.Tensor]
+                                 ) -> torch.Tensor:
+    """Dense propagation with per-direction edge dropout and no rescale
+    (PyG ``dropout_adj`` on the COO path: each direction dropped
+    independently, weights kept): U ← (m₁ ⊙ A)·I, I ← (m₂ ⊙ A)ᵀ·U, with
+    ``masks`` from :func:`dense_dropout_masks`."""
+    a = graph.a if graph.a.dtype == x.dtype else graph.a.to(x.dtype)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    a1 = torch.where(masks[0], a, zero)
+    a2 = torch.where(masks[1], a, zero)
+    xu, xi = x[:graph.n_users], x[graph.n_users:]
+    return torch.cat([torch.matmul(a1, xi), torch.matmul(a2.T, xu)], dim=0)
 
 
 def spmm_any(graph, x: torch.Tensor) -> torch.Tensor:

@@ -105,17 +105,14 @@ def load_checkpoint(path: str) -> dict:
     return _unflatten(flat)
 
 
-def params_from_numpy(params: dict, device: torch.device | str
-                      ) -> dict:
-    """Carry a (nested) dict of numpy arrays onto ``device`` as tensors
-    of their own (0-d arrays become 0-d tensors; other leaves pass
-    through)."""
-    out = {}
-    for k, v in params.items():
-        if isinstance(v, dict):
-            out[k] = params_from_numpy(v, device)
-        elif isinstance(v, np.ndarray):
-            out[k] = torch.tensor(v, device=device)   # a copy: v may be read-only
-        else:
-            out[k] = v
-    return out
+def params_from_numpy(params, device: torch.device | str):
+    """Carry a nested dict / list / tuple of numpy arrays onto
+    ``device`` as tensors of their own (0-d arrays become 0-d tensors;
+    other leaves pass through)."""
+    if isinstance(params, dict):
+        return {k: params_from_numpy(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_from_numpy(v, device) for v in params)
+    if isinstance(params, np.ndarray):
+        return torch.tensor(params, device=device)   # a copy: may be read-only
+    return params

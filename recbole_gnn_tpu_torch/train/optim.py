@@ -1,4 +1,4 @@
-"""Optimizers — functional updates on (nested) dicts of tensors.
+"""Optimizers — functional updates on nested dicts / lists of tensors.
 
 Port of ``recbole_gnn_tpu/train/optim.py``: the [recbole] ``learner``
 values (adam default; sgd / adagrad / rmsprop), global-norm gradient
@@ -30,25 +30,33 @@ class Optimizer(NamedTuple):
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
-    """Leaves of a nested dict in sorted-key order (JAX's order)."""
+    """Leaves of a nested dict / list / tuple in JAX's order: dict keys
+    sorted, sequences in order."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
 def tree_unflatten(like, leaves: list):
-    """A tree shaped like ``like`` holding ``leaves`` (sorted-key order)."""
+    """A tree shaped like ``like`` holding ``leaves`` (``tree_leaves``
+    order)."""
     it = iter(leaves)
 
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
         return next(it)
 
     return build(like)

@@ -93,7 +93,10 @@ def test_registry_tables_equal():
 def test_get_model_ported_and_pending():
     assert t_get_model("lightgcn").__name__ == "LightGCN"
     assert t_get_model("BPR").__name__ == "BPR"
-    for name in ("NGCF", "SRGNN", "DiffNet", "NeuMF"):
+    for name in ("NGCF", "SGL", "NCL", "HMLET", "LightGCL", "DirectAU",
+                 "NeuMF", "SSL4REC"):
+        assert t_get_model(name).__name__ == name
+    for name in ("SRGNN", "DiffNet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_get_model(name)
 

@@ -1,0 +1,195 @@
+"""Shared helpers of the general-model parity tests
+(``test_torch_general_*.py``): both packages' models from one config,
+JAX params carried into the port, and the loss / parts / gradients
+comparison at the tolerances those tests state (loss and parts rtol
+1e-5 / atol 1e-6, gradients rtol 1e-4 / atol 1e-6)."""
+
+import importlib
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import base_config_dict
+from recbole_gnn_tpu.config import Config as JConfig
+from recbole_gnn_tpu.models import get_model as j_get_model
+from recbole_gnn_tpu.quick_start import create_dataset as j_create_dataset
+from recbole_gnn_tpu.quick_start import data_preparation as j_data_preparation
+from recbole_gnn_tpu.train.checkpoint import load_checkpoint as j_load
+from recbole_gnn_tpu.train.trainer import Trainer as JTrainer
+from recbole_gnn_tpu_torch.config import Config as TConfig
+from recbole_gnn_tpu_torch.eval.evaluator import to_device
+from recbole_gnn_tpu_torch.models import get_model as t_get_model
+from recbole_gnn_tpu_torch.quick_start import create_dataset as t_create_dataset
+from recbole_gnn_tpu_torch.quick_start import data_preparation as t_data_preparation
+from recbole_gnn_tpu_torch.train.checkpoint import params_from_numpy
+from recbole_gnn_tpu_torch.train.optim import tree_leaves
+from recbole_gnn_tpu_torch.train.trainer import Trainer as TTrainer
+
+j_spmm_mod = importlib.import_module("recbole_gnn_tpu.ops.spmm")
+j_pallas_mod = importlib.import_module("recbole_gnn_tpu.ops.pallas_spmm")
+
+EMB = 16
+N_LAYERS = 2
+GRAPHS = {"dense": {},
+          "ell": {"enable_sparse": True, "sparse_spmm_impl": "ell"},
+          "xla": {"enable_sparse": True, "sparse_spmm_impl": "xla"},
+          "pallas": {"enable_sparse": True, "sparse_spmm_impl": "pallas"}}
+LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def cfg(model, graph="dense", **over):
+    cd = dict(model=model, embedding_size=EMB, n_layers=N_LAYERS, seed=2020,
+              use_gpu=False, **GRAPHS[graph])
+    cd.update(over)
+    return base_config_dict(**cd)
+
+
+def jax_globals(mp):
+    """The JAX package's create_dataset sets module globals: restore
+    them when the context ends, so later JAX tests see the defaults."""
+    mp.setattr(j_spmm_mod, "SPMM_IMPL", j_spmm_mod.SPMM_IMPL)
+    mp.setattr(j_pallas_mod, "DEFAULT_PRECISION",
+               j_pallas_mod.DEFAULT_PRECISION)
+
+
+def both(cd, t_model_kw=None):
+    """[(config, (train, valid, test) loaders, model)] for JAX, port;
+    ``t_model_kw(jax_model)`` gives the port model's extra keywords."""
+    out = []
+    for cfg_cls, create, prep, get_model in (
+            (JConfig, j_create_dataset, j_data_preparation, j_get_model),
+            (TConfig, t_create_dataset, t_data_preparation, t_get_model)):
+        c = cfg_cls(config_dict=cd)
+        (tl, tr), (vl, _), (te, _) = prep(c, create(c))
+        kw = t_model_kw(out[0][2]) if out and t_model_kw else {}
+        out.append((c, (tl, vl, te), get_model(c["model"])(c, tr, **kw)))
+    return out
+
+
+def to_numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy_tree(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def port_params(jp, grad=True):
+    tp = params_from_numpy(to_numpy_tree(jp), "cpu")
+    if grad:
+        for v in tree_leaves(tp):
+            v.requires_grad_(True)
+    return tp
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def padded_batch(jtl):
+    batch = list(jtl)[-1]                   # the padded last batch
+    assert (batch["weight"] == 0).sum() > 0
+    return batch
+
+
+def assert_tree_close(got, want, tol=LOSS_TOL, what=""):
+    g, w = tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(g) == len(w), what
+    for i, (a, b) in enumerate(zip(g, w)):
+        a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   err_msg=f"{what}[{i}]", **tol)
+
+
+def check_loss_and_grads(jm, tm, jp, batch, key, j_extras, t_extras,
+                         mode=0, **t_kw):
+    """From one JAX param tree, the JAX loss under ``key`` against the
+    port's with the JAX draws in ``t_kw``: loss, parts, gradients of
+    every leaf (a leaf autograd leaves unused counts as 0, as the
+    trainer takes it)."""
+    tp = port_params(jp)
+
+    def j_loss(p):
+        return jm.calculate_loss(
+            p, jm.consts, j_extras,
+            {k: jnp.asarray(v) for k, v in batch.items()}, key, mode=mode)
+
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(jp)
+    tl, taux = tm.calculate_loss(tp, tm.consts, t_extras,
+                                 to_device(batch, "cpu"), None, mode=mode,
+                                 **t_kw)
+    leaves = tree_leaves(tp)
+    tg = torch.autograd.grad(tl, leaves, allow_unused=True)
+    tg = [torch.zeros_like(p) if g is None else g
+          for p, g in zip(leaves, tg)]
+    np.testing.assert_allclose(float(tl.detach()), float(jl), **LOSS_TOL)
+    assert sorted(taux) == sorted(jaux)
+    for k in jaux:
+        np.testing.assert_allclose(float(taux[k].detach()), float(jaux[k]),
+                                   err_msg=k, **LOSS_TOL)
+    assert_tree_close(tg, jg, GRAD_TOL, "grad")
+    return tp, tg, jg
+
+
+def jax_bernoulli_keeps(key, shapes, p):
+    """Keep masks as a JAX forward draws them: per shape,
+    rng, k = split(rng); bernoulli(k, 1 − p, shape)."""
+    out, rng = [], key
+    for shape in shapes:
+        rng, k = jax.random.split(rng)
+        out.append(t(jax.random.bernoulli(k, 1.0 - p, shape)))
+    return out
+
+
+def _losses(path):
+    with open(path) as f:
+        return [r["loss"] for r in map(json.loads, f)
+                if r["event"] == "train_epoch"]
+
+
+def resumed_runs(tmp, cd, inject):
+    """A JAX trainer runs epoch 0 and saves; both packages resume from
+    that checkpoint and train epochs 1 and 2 with the same draws."""
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        jax_globals(mp)
+        (jc, (tl, vl, _), jm), _ = both(dict(cd, epochs=1))
+        JTrainer(jc, jm).fit(tl, vl, saved=True, verbose=False)
+        ckpt = j_load(str(tmp / f"{cd['model']}-test.ckpt"))
+        (jc, jl, jm), (tc, tl_, tm) = both(dict(cd, epochs=3))
+        inject(tm, jm, cd["seed"])
+        for name, c, (tl, vl, te), m, cls in (
+                ("jax", jc, jl, jm, JTrainer), ("torch", tc, tl_, tm,
+                                                TTrainer)):
+            c["metrics_log_path"] = str(tmp / f"{name}.jsonl")
+            tr = cls(c, m)
+            tr.fit(tl, vl, saved=False, verbose=False, resume=True)
+            runs[name] = (tr, tr.evaluate(te, load_best_model=False),
+                          _losses(tmp / f"{name}.jsonl"), m, len(tl))
+    assert int(ckpt["epoch"]) == 0
+    return runs
+
+
+def check_gate(runs):
+    """The ROADMAP gate: the same per-epoch losses (rtol 1e-4) and test
+    metrics (abs 1e-3) from the two packages' resumed runs."""
+    (_, jr, jl, _, _), (_, tr, tl, _, _) = runs["jax"], runs["torch"]
+    assert len(jl) == len(tl) == 2              # epochs 1 and 2
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    assert jr.keys() == tr.keys() and "recall@10" in tr
+    for k in jr:
+        assert abs(tr[k] - jr[k]) <= 1e-3, (k, tr[k], jr[k])
+
+
+__all__ = ["EMB", "N_LAYERS", "GRAPHS", "LOSS_TOL", "GRAD_TOL", "cfg",
+           "jax_globals", "both", "port_params", "t", "padded_batch",
+           "assert_tree_close", "check_loss_and_grads",
+           "jax_bernoulli_keeps", "to_numpy_tree", "resumed_runs",
+           "check_gate"]
