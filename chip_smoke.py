@@ -43,7 +43,27 @@ the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
    model's step is held against the same step on plain SpMMs, and so
    are NGCF with ``node_dropout: 0.1`` (its re-weighted graph runs D2
    and D1) and LightGCL on ``pallas`` (K1 and K1ᵀ); SGL is exported
-   and served, and NeuMF's export must refuse.
+   and served, and NeuMF's export must refuse;
+8. last, the session family (in a child process, ``--session``) on a
+   seeded synthetic log of the reference's diginetica setting (72,014
+   sessions × 29,454 items × 580,490 clicks,
+   ``recbole_gnn_tpu_torch.diag.diginetica_shape``) at
+   ``examples/diginetica.yaml``'s settings (``MAX_ITEM_LIST_LENGTH`` 20,
+   5-core, batch 4,096, evaluation batch 2,000): the C++ session-graph
+   builder must load and equal the numpy path on the whole dataset;
+   SRGNN, NISER, TAGNN, GCSAN, SGNNHN, GRU4Rec, NARM and SASRec each
+   train one epoch through ``run_recbole_gnn_tpu`` at their yaml (no
+   kernel of the port runs on that dense path: every count must stay
+   0), the CE of a fixed batch must fall from the initial params to the
+   trained ones, the metrics be finite (SRGNN's Recall@10 > 0), one
+   step on the card equal the same step on the CPU (loss rtol 1e-4,
+   every gradient within 1e-4 of the step's largest, the logits within
+   1e-4 of theirs; dropout masks drawn on the card and replayed); SRGNN and SASRec are served by
+   ``SessionServer`` from their checkpoints (top-k against the
+   evaluator's on 512 test sessions, ``recommend`` p50/p99 at B = 1, 8,
+   64, 256, one HTTP round trip); and the sparse SR-GNN cell runs over
+   one training batch's disjoint-union session graph on ``ell`` (2 K2 +
+   2 K2ᵀ) and ``pallas`` (2 K1 + 2 K1ᵀ), held against the dense cell.
 
 Each path runs with every launch counter set to 0 just before it and
 read just after, and the counts are checked exactly.  Then it holds one
@@ -686,13 +706,15 @@ def check_recommendations(srv, uids: np.ndarray, idx: np.ndarray,
                                        rtol=1e-4, atol=1e-7)
 
 
-def http_roundtrip(srv, users: list[str], k: int) -> dict:
+def http_roundtrip(srv, users: list, k: int, key: str = "users") -> dict:
+    """One POST /recommend of ``users`` (or, with ``key="sessions"``,
+    of item-token sessions) to a threading HTTP server on ``srv``."""
     from recbole_gnn_tpu_torch.serve import make_http_server
     httpd = make_http_server(srv, "127.0.0.1", 0)
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
     t.start()
     try:
-        body = json.dumps({"users": users, "k": k}).encode()
+        body = json.dumps({key: users, "k": k}).encode()
         req = urllib.request.Request(
             f"http://127.0.0.1:{httpd.server_address[1]}/recommend",
             data=body, headers={"Content-Type": "application/json"})
@@ -750,6 +772,7 @@ def check_metrics(name: str, result: dict):
 # each wrapper's device kernels by name, on the path of each impl (K1's
 # and D1's passes share names, but no path runs both)
 STEP_KERNELS = {
+    "session": {},
     "ell": {"ell_spmm": ("ell_row_kernel", "ell_combine_kernel")},
     "pallas": {"segment_spmm": ("share_sum_kernel", "carry_sum_kernel")},
     "xla": {"row_gather": ("row_gather_kernel",),
@@ -1408,6 +1431,519 @@ def run_general_phase(tmp: str) -> dict:
         return json.load(f)
 
 
+# -- the session family -------------------------------------------------------
+
+SESSION_MODELS = ("SRGNN", "NISER", "TAGNN", "GCSAN", "SGNNHN", "GRU4Rec",
+                  "NARM", "SASRec")
+SESSION_SERVED = ("SRGNN", "SASRec")
+SESSION_BATCHES = (1, 8, 64, 256)
+SESSION_SERVE_CHECKED = 512        # test sessions held against the evaluator
+# one step on the card against the same step on the CPU: the same f32
+# terms summed in another order (cuBLAS and the CPU's BLAS), through at
+# most 6 cells (SGNNHN) or 20 GRU steps; gradients |Δ| ≤ 1e-4·max|g|
+# over every leaf of the step, the logits 1e-4 of their max, the loss
+# rtol 1e-4
+SESSION_STEP_RTOL = 1e-4
+SESSION_STEP_ATOL_FRAC = 1e-4
+
+
+def session_config(tmp: str, model: str) -> dict:
+    """``examples/diginetica.yaml``'s settings (the model's yaml for the
+    rest), one epoch; the dataset and its splits cached for the next
+    model; each model in its own checkpoint directory."""
+    ck = os.path.join(tmp, f"{model}-session")
+    return {"data_path": tmp, "checkpoint_dir": ck,
+            "USER_ID_FIELD": "session_id", "ITEM_ID_FIELD": "item_id",
+            "TIME_FIELD": "timestamp",
+            "load_col": {"inter": ["session_id", "item_id", "timestamp"]},
+            "user_inter_num_interval": "[5,inf)",
+            "item_inter_num_interval": "[5,inf)",
+            "MAX_ITEM_LIST_LENGTH": 20, "train_batch_size": 4096,
+            "eval_batch_size": 2000, "valid_metric": "MRR@10",
+            "eval_args": {"split": {"LS": "valid_and_test"}, "mode": "full",
+                          "order": "TO"},
+            "metrics": ["Recall", "MRR", "NDCG", "Hit", "Precision"],
+            "topk": [10], "embedding_size": 64, "epochs": 1, "eval_step": 1,
+            "seed": SEED, "state": "ERROR", "save_dataset": True,
+            "save_dataloaders": True,
+            "metrics_log_path": os.path.join(ck, "train.jsonl")}
+
+
+def check_native_builder(config) -> dict:
+    """The dataset's session graphs came from the C++ builder, and its
+    arrays equal the numpy path's on every split of the whole dataset."""
+    from recbole_gnn_tpu_torch import native
+    from recbole_gnn_tpu_torch.data.session import (SessionGraphDataset,
+                                                    _alias_per_row,
+                                                    _unique_per_row)
+    from recbole_gnn_tpu_torch.quick_start import (create_dataset,
+                                                   data_preparation)
+    if not native.native_available():
+        raise AssertionError("the native session-graph builder did not "
+                             "build or load")
+    t0 = time.perf_counter()
+    splits = data_preparation(config, create_dataset(config))
+    build_s = time.perf_counter() - t0
+    rows, native_s, numpy_s = 0, 0.0, 0.0
+    for _, ds in splits:
+        seqs = ds.inter[ds.item_list_field]
+        lens = ds.inter[ds.item_length_field]
+        L = ds.max_seq_len
+        t0 = time.perf_counter()
+        got = native.build_session_graphs_native(seqs, lens)
+        native_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x, n_nodes = _unique_per_row(seqs)
+        alias = _alias_per_row(x, n_nodes, seqs, lens)
+        src, dst, n_edges = SessionGraphDataset._consecutive_edges(
+            alias, lens, L)
+        numpy_s += time.perf_counter() - t0
+        want = (x, n_nodes, alias, src, dst, n_edges)
+        names = ("x", "n_nodes", "alias_inputs", "edge_src", "edge_dst",
+                 "n_edges")
+        for name, g, w in zip(names, got, want):
+            if not np.array_equal(g, w) or not np.array_equal(
+                    ds.session_graphs[name], w):
+                raise AssertionError(f"native session graphs differ from "
+                                     f"the numpy path's in {name}")
+        rows += len(seqs)
+    out = {"sessions": rows, "native_s": native_s, "numpy_s": numpy_s,
+           "dataset_and_splits_s": build_s,
+           "library": native.library_path()}
+    log(f"[session data] native builder == numpy path on all {rows} "
+        f"augmented sessions of the three splits (native {native_s:.3f} s, "
+        f"numpy {numpy_s:.3f} s); dataset + splits built in {build_s:.1f} s")
+    return out
+
+
+def session_step_vs_cpu(name: str, model, cpu_model, params: dict,
+                        host_batch: dict, dev) -> dict:
+    """One training step (loss and every gradient) and the train=False
+    logits on the card against the same on the CPU, from the same params
+    and batch; a dropout model's masks are drawn on the card and
+    replayed on the CPU.  Raises past the SESSION_STEP_* tolerances."""
+    import inspect
+
+    from recbole_gnn_tpu_torch.eval.evaluator import to_device
+    from recbole_gnn_tpu_torch.models.layers import KeepStream
+    from recbole_gnn_tpu_torch.train.optim import tree_leaves, tree_map
+
+    dropout = "keeps" in inspect.signature(model.calculate_loss).parameters
+    stream = (KeepStream(torch.Generator(device=dev).manual_seed(SEED))
+              if dropout else None)
+
+    def run(m, p, batch, keeps):
+        p = tree_map(lambda v: v.detach().clone().requires_grad_(True), p)
+        kw = {} if keeps is None else {"keeps": keeps}
+        loss, _ = m.calculate_loss(p, m.consts, {}, batch, None, **kw)
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+        with torch.no_grad():
+            logits = m.full_scores(p, m.consts, {}, batch, None, False)
+        return loss.detach().cpu(), [None if g is None else g.cpu()
+                                     for g in grads], logits.cpu()
+
+    t0 = time.perf_counter()
+    k_loss, k_grads, k_logits = run(model, params, to_device(host_batch, dev),
+                                    stream)
+    card_s = time.perf_counter() - t0
+    cpu_params = tree_map(lambda v: v.detach().cpu(), params)
+    t0 = time.perf_counter()
+    c_loss, c_grads, c_logits = run(
+        cpu_model, cpu_params, to_device(host_batch, "cpu"),
+        None if stream is None else [k.cpu() for k in stream.drawn])
+    cpu_s = time.perf_counter() - t0
+    out = {"loss_card": float(k_loss), "loss_cpu": float(c_loss),
+           "loss_abs_err": float((k_loss - c_loss).abs()),
+           "keep_masks": 0 if stream is None else len(stream.drawn),
+           "card_s": card_s, "cpu_s": cpu_s}
+    if not out["loss_abs_err"] <= SESSION_STEP_RTOL * abs(out["loss_cpu"]):
+        raise AssertionError(f"[{name}] card step loss differs from the "
+                             f"CPU's: {out}")
+    # every leaf within 1e-4 of the largest gradient entry of the step:
+    # a leaf whose true gradient is 0 (the attention's key bias) holds
+    # only rounding noise, which no bound relative to itself can hold
+    g_max = max(float(cg.abs().max()) for cg in c_grads if cg is not None)
+    lim = SESSION_STEP_ATOL_FRAC * g_max
+    worst = 0.0
+    for i, (kg, cg) in enumerate(zip(k_grads, c_grads)):
+        if (kg is None) != (cg is None):
+            raise AssertionError(f"[{name}] gradient {i} used on one side")
+        if kg is None:
+            continue
+        err = float((kg - cg).abs().max())
+        if not (err <= lim and bool(torch.isfinite(kg).all())):
+            raise AssertionError(f"[{name}] card gradient of leaf {i} "
+                                 f"differs from the CPU's: max |err| {err:.3e}"
+                                 f" > {lim:.3e}")
+        worst = max(worst, err)
+    err = float((k_logits - c_logits).abs().max())
+    lim = SESSION_STEP_ATOL_FRAC * float(c_logits.abs().max())
+    if not err <= lim:
+        raise AssertionError(f"[{name}] card logits differ from the CPU's: "
+                             f"max |err| {err:.3e} > {lim:.3e}")
+    out.update(grad_max_abs_err=worst, grad_max_abs=g_max,
+               logits_max_abs_err=err,
+               logits_max_abs=float(c_logits.abs().max()),
+               grad_leaves=len(k_grads))
+    return out
+
+
+def session_path(tmp: str, model_name: str, dev) -> dict:
+    """Train ``model_name`` for one epoch through ``run_recbole_gnn_tpu``
+    with every counter set to 0 just before and read just after (the
+    dense session path launches no kernel of the port); check the run,
+    the fall of the loss over the epoch (the CE of a fixed batch from the
+    initial params and from the trained checkpoint), the metrics, one
+    step on the card against the CPU; time its steps and an
+    evaluation."""
+    from recbole_gnn_tpu_torch.config import Config
+    from recbole_gnn_tpu_torch.eval.evaluator import to_device
+    from recbole_gnn_tpu_torch.models import get_model
+    from recbole_gnn_tpu_torch.models.losses import cross_entropy
+    from recbole_gnn_tpu_torch.quick_start import (create_dataset,
+                                                   data_preparation,
+                                                   run_recbole_gnn_tpu)
+    from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                       params_from_numpy)
+    from recbole_gnn_tpu_torch.train.trainer import Trainer
+    cd = session_config(tmp, model_name)
+    tag = f"{model_name} session"
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_recbole_gnn_tpu(model=model_name, dataset="diginetica_shape",
+                              config_dict=cd, saved=True, verbose=False)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    with open(cd["metrics_log_path"]) as f:
+        events = [json.loads(line) for line in f]
+    config = Config(model=model_name, dataset="diginetica_shape",
+                    config_dict=cd)
+    (train_loader, train_ds), (valid_loader, _), (test_loader, _) = \
+        data_preparation(config, create_dataset(config))
+    model = get_model(model_name)(config, train_ds, dev)
+    steps = len(train_loader)
+    epoch_events = [e for e in events if e["event"] == "train_epoch"]
+    valids = [e for e in events if e["event"] == "valid"]
+    losses = [e["loss"] for e in epoch_events]
+    log(f"[{tag}] train: {steps} steps of {train_loader.batch_size} "
+        f"sessions ({train_ds.inter_num} training sessions, "
+        f"{model.n_items} items); 1 epoch in {wall:.1f} s end to end")
+    for e in epoch_events:
+        log(f"[{tag}] train epoch {e['epoch']}: summed loss "
+            f"{e['loss']:.4f}, {e['seconds']:.3f} s, "
+            f"{e['examples_per_s']:.0f} sessions/s")
+    for e in valids:
+        log(f"[{tag}] valid epoch {e['epoch']}: {e['seconds']:.3f} s, "
+            f"recall@10 {e['recall@10']:.5f}, mrr@10 {e['mrr@10']:.5f}")
+    log(f"[{tag}] test: {res['test_result']}")
+    if len(losses) != 1 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[{tag}] training losses: {losses}")
+    for e in valids:
+        check_metrics(f"[{tag}] valid epoch {e['epoch']}",
+                      {k: v for k, v in e.items() if "@" in k})
+    check_metrics(f"[{tag}] test", res["test_result"])
+    if model_name == "SRGNN" and not res["test_result"]["recall@10"] > 0:
+        raise AssertionError(f"[{tag}] test recall@10 is 0")
+    want = {k: 0 for k in counters()}
+    log(f"[{tag}] train launches: {counts} (expected none: the dense "
+        "session path runs no kernel of the port)")
+    if counts != want:
+        raise AssertionError(f"[{tag}] training launch counts differ")
+    log(f"[{tag}] train peak device memory (max_memory_allocated): "
+        f"{peak_bytes} bytes ({peak_bytes / 2**30:.3f} GiB)")
+
+    ckpt = os.path.join(cd["checkpoint_dir"],
+                        f"{model_name}-diginetica_shape.ckpt")
+    state = load_checkpoint(ckpt)
+    params = params_from_numpy(state["params"], dev)
+    # the loss over the epoch: CE of one fixed batch (train=False) from
+    # the params fit() started with and from the trained checkpoint
+    host_batch = next(iter(train_loader))
+    fixed = to_device(host_batch, dev)
+    init = model.init_params(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        ce = [float(cross_entropy(model.full_scores(p, model.consts, {},
+                                                    fixed, None, False),
+                                  fixed["item_id"], fixed["weight"]))
+              for p in (init, params)]
+    log(f"[{tag}] CE of the first training batch: {ce[0]:.5f} from the "
+        f"initial params, {ce[1]:.5f} after the epoch")
+    if not (all(map(math.isfinite, ce)) and ce[1] < ce[0]):
+        raise AssertionError(f"[{tag}] the loss did not fall: {ce}")
+    trainer = Trainer(config, model)
+    it = iter(train_loader)
+    host_batches = [next(it) for _ in range(5 + TIMED_STEPS + 10)]
+    step_ms, prof = time_train_steps(trainer, model, state, host_batches,
+                                     dev, "session")
+    log(f"[{tag}] train step (host clock, synchronised, {TIMED_STEPS} steps "
+        f"after 5 warm-up): median {np.median(step_ms):.3f} ms, min "
+        f"{min(step_ms):.3f}, max {max(step_ms):.3f}")
+    log(f"[{tag}] train step profile (torch.profiler, 10 steps): "
+        + (json.dumps(prof) if prof else "not measured (no device "
+           "activity recorded)"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = trainer.evaluator.evaluate(params, {}, valid_loader)
+    eval_s = time.perf_counter() - t0
+    log(f"[{tag}] full-sort evaluation of {valid_loader.n} valid sessions x "
+        f"{model.n_items} items (host clock): {eval_s:.3f} s")
+    best = valids[-1]
+    for k, v in result.items():
+        if not abs(v - best[k]) <= 1e-6:
+            raise AssertionError(f"[{tag}] re-evaluation of the checkpoint: "
+                                 f"{k} {v} differs from its validation "
+                                 f"{best[k]}")
+    cpu_model = get_model(model_name)(config, train_ds, "cpu")
+    step_err = session_step_vs_cpu(model_name, model, cpu_model, params,
+                                   host_batch, dev)
+    log(f"[{tag}] card step vs CPU step: " + ", ".join(
+        f"{k} {v:.6e}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in step_err.items()))
+    summary = {"steps_per_epoch": steps, "batch": train_loader.batch_size,
+               "epoch_s": [e["seconds"] for e in epoch_events],
+               "sessions_per_s": [e["examples_per_s"] for e in epoch_events],
+               "losses": losses, "ce_fixed_batch": ce, "run_s": wall,
+               "step_median_ms": float(np.median(step_ms)),
+               "device_ms_per_step": prof.get("device_ms_per_step"),
+               "device_busy_share": prof.get("device_busy_share"),
+               "top_ms_per_step": prof.get("top_ms_per_step"),
+               "peak_bytes": peak_bytes, "eval_s": eval_s,
+               "valid": {k: v for k, v in valids[-1].items() if "@" in k},
+               "test": res["test_result"], "card_vs_cpu": step_err}
+    return {"config": config, "ckpt": ckpt, "model": model,
+            "params": params, "counts": counts, "test_loader": test_loader,
+            "train_loader": train_loader, "summary": summary}
+
+
+def session_serve(run: dict, name: str, dev) -> dict:
+    """``SessionServer`` from the trained checkpoint, every counter set to
+    0 before and read after: its top-k for SESSION_SERVE_CHECKED test
+    sessions against the evaluator's full sort of the same sessions
+    (equal up to ties within rounding), ``recommend`` latency at
+    SESSION_BATCHES (k = 10) and one HTTP round trip."""
+    from recbole_gnn_tpu_torch.eval.evaluator import to_device
+    from recbole_gnn_tpu_torch.ops.topk import NEG_INF
+    from recbole_gnn_tpu_torch.serve import SessionServer
+    tag = f"{name} serve"
+    reset_counts()
+    t0 = time.perf_counter()
+    srv = SessionServer(run["config"], checkpoint_path=run["ckpt"])
+    start_s = time.perf_counter() - t0
+    model = run["model"]
+    sessions, want_idx, want_vals = [], [], []
+    for batch in run["test_loader"]:
+        rows = np.flatnonzero(batch["weight"] > 0)
+        with torch.no_grad():
+            scores = model.full_scores(run["params"], model.consts, {},
+                                       to_device(batch, dev), None, False)
+            scores[:, 0] = NEG_INF
+            v, i = torch.topk(scores, TOP_K)
+        for r in rows[:SESSION_SERVE_CHECKED - len(sessions)]:
+            n = int(batch["item_seq_len"][r])
+            sessions.append([str(srv.item_tokens[j])
+                             for j in batch["item_seq"][r][:n]])
+            want_idx.append(i[r].cpu().numpy())
+            want_vals.append(v[r].cpu().numpy())
+        if len(sessions) >= SESSION_SERVE_CHECKED:
+            break
+    got_idx, got_vals = srv.recommend(sessions, k=TOP_K,
+                                      return_tokens=False)
+    want_idx, want_vals = np.array(want_idx), np.array(want_vals)
+    same_rows = int((got_idx == want_idx).all(axis=1).sum())
+    scale = float(np.abs(want_vals).max())
+    if (got_idx == 0).any() or not np.allclose(
+            got_vals, want_vals, rtol=1e-5, atol=1e-5 * scale):
+        raise AssertionError(f"[{tag}] served top-k values differ from the "
+                             "evaluator's")
+    for r in np.flatnonzero((got_idx != want_idx).any(axis=1)):
+        # a different order only among scores equal within rounding
+        diff = got_idx[r] != want_idx[r]
+        if not np.allclose(got_vals[r][diff], want_vals[r][diff],
+                           rtol=1e-5, atol=1e-5 * scale):
+            raise AssertionError(f"[{tag}] row {r}: served top-k "
+                                 f"{got_idx[r]} != evaluator's {want_idx[r]}")
+    log(f"[{tag}] top-{TOP_K} of {len(sessions)} test sessions equals the "
+        f"evaluator's full sort ({same_rows} rows in the same order, the "
+        "rest reordered among ties within 1e-5); server start "
+        f"{start_s:.1f} s")
+    lat = {}
+    rng = np.random.default_rng(SEED)
+    for b in SESSION_BATCHES:
+        reqs = 100 if b <= 64 else 40
+        picks = [[sessions[j] for j in rng.integers(0, len(sessions), b)]
+                 for _ in range(reqs + 3)]
+        for p in picks[:3]:
+            srv.recommend(p, k=TOP_K)                 # warm-up
+        times = []
+        for p in picks[3:]:
+            t0 = time.perf_counter()
+            srv.recommend(p, k=TOP_K)
+            times.append((time.perf_counter() - t0) * 1e3)
+        lat[b] = {"p50_ms": float(np.percentile(times, 50)),
+                  "p99_ms": float(np.percentile(times, 99)),
+                  "requests": reqs}
+    out = http_roundtrip(srv, sessions[:3], TOP_K, key="sessions")
+    items, _ = srv.recommend(sessions[:3], k=TOP_K)
+    if out["items"] != items:
+        raise AssertionError(f"[{tag}] the HTTP answer differs from "
+                             "recommend's")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[{tag}] serving launched {counts}")
+    log(f"[{tag}] recommend latency by batch (ms, host clock, k={TOP_K}): "
+        f"{json.dumps(lat)}; http: {len(out['items'])} sessions answered")
+    return {"counts": counts, "latency": lat, "same_rows": same_rows,
+            "checked": len(sessions), "start_s": start_s}
+
+
+def sparse_cell_on_kernels(run: dict, dev) -> tuple[dict, dict]:
+    """The sparse ``srgnn_cell`` over one training batch's disjoint-union
+    session graph on ``ell`` (K2 forward, K2T back) and ``pallas`` (K1,
+    K1T), each with the counters at 0 before and read after (exactly 2
+    forward and 2 transpose launches: the in- and out-graph), held
+    against ``srgnn_cell_dense`` on the same batch, values and
+    gradients."""
+    from recbole_gnn_tpu_torch.eval.evaluator import to_device
+    from recbole_gnn_tpu_torch.models.layers import srgnn_cell
+    from recbole_gnn_tpu_torch.models.sequential.common import (
+        node_embeddings, session_dense_adj, session_union_graphs,
+        srgnn_cell_dense)
+    host = next(iter(run["train_loader"]))
+    batch = to_device(host, dev)
+    params = run["params"]
+    B, L = host["x"].shape
+    D = params["item_emb"].shape[1]
+    cell = {k: {n: v.detach().clone().requires_grad_(True)
+                for n, v in lin.items()} for k, lin in params["cell"].items()}
+    hidden = node_embeddings(params["item_emb"], batch).detach()
+    cot = torch.randn(B, L, D, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+
+    def grads_of(out, h):
+        leaves = [h, cell["in_conv"]["w"], cell["out_conv"]["w"],
+                  cell["lin_ih"]["w"], cell["lin_hh"]["w"]]
+        return torch.autograd.grad((out * cot.reshape(out.shape)).sum(),
+                                   leaves)
+
+    h = hidden.clone().requires_grad_(True)
+    a_in, a_out = session_dense_adj(batch)
+    dense = srgnn_cell_dense(cell, h, a_in, a_out)
+    d_grads = grads_of(dense, h)
+    dense_ms = time_cuda_ms(lambda: srgnn_cell_dense(cell, hidden, a_in,
+                                                     a_out))
+    paths, out = {}, {}
+    for impl, want in (("ell", {"ell_spmm": 2, "ell_spmm_transpose": 2}),
+                       ("pallas", {"segment_spmm": 2,
+                                   "segment_spmm_transpose": 2})):
+        in_g, out_g = session_union_graphs(host, device=dev, impl=impl)
+        h = hidden.reshape(B * L, D).clone().requires_grad_(True)
+        reset_counts()
+        sparse = srgnn_cell(cell, h, in_g, out_g)
+        s_grads = grads_of(sparse, h)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        got = {k: v for k, v in counts.items() if v}
+        if got != want:
+            raise AssertionError(f"[srgnn_cell {impl}] launched {got}, "
+                                 f"expected {want}")
+        paths[f"srgnn_cell_{impl}"] = counts
+        err = float((sparse.reshape(B, L, D) - dense).detach().abs().max())
+        lim = 1e-5 * float(dense.detach().abs().max())
+        if not err <= lim:
+            raise AssertionError(f"[srgnn_cell {impl}] differs from the "
+                                 f"dense cell: {err:.3e} > {lim:.3e}")
+        g_err = 0.0
+        for sg, dg in zip(s_grads, d_grads):
+            e = float((sg.reshape(dg.shape) - dg).abs().max())
+            if not e <= SESSION_STEP_ATOL_FRAC * float(dg.abs().max()):
+                raise AssertionError(f"[srgnn_cell {impl}] gradient differs "
+                                     f"from the dense cell's: {e:.3e}")
+            g_err = max(g_err, e / float(dg.abs().max()))
+        with torch.no_grad():
+            ms = time_cuda_ms(lambda: srgnn_cell(
+                cell, hidden.reshape(B * L, D), in_g, out_g))
+        out[impl] = {"max_abs_err": err, "grad_max_err_over_max": g_err,
+                     "forward_ms": ms, "edges": in_g.nnz, "nodes": B * L}
+        log(f"[srgnn_cell {impl}] one training batch's union graph "
+            f"({B * L} nodes, {in_g.nnz} edges each way): launches {got}; "
+            f"max |sparse - dense| {err:.3e}, gradients {g_err:.3e} of max; "
+            f"forward {ms:.4f} ms (dense cell {dense_ms:.4f} ms)")
+    out["dense_forward_ms"] = dense_ms
+    return paths, out
+
+
+def session_main(tmp: str, out_path: str) -> int:
+    """The session phase (a child process of :func:`main`): writes the
+    diginetica-shape log into ``tmp``, checks the native builder, trains
+    the eight session models, serves SRGNN and SASRec, runs the sparse
+    SR-GNN cell on K2 and K1; writes the launch counts by path and the
+    summaries to ``out_path``."""
+    from recbole_gnn_tpu_torch.diag.diginetica_shape import (
+        DIGINETICA_SHAPE, revisit_share, write_diginetica_shape)
+    from recbole_gnn_tpu_torch.ops import cuda_build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cuda_build.build(SOURCES)              # built by main: loads only
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    path = write_diginetica_shape(tmp, "diginetica_shape", SEED,
+                                  **DIGINETICA_SHAPE)
+    log(f"[session data] diginetica-shape log written "
+        f"({time.perf_counter() - t0:.1f} s): {DIGINETICA_SHAPE}, revisit "
+        f"share {revisit_share(path):.4f}")
+    from recbole_gnn_tpu_torch.config import Config
+    native_check = check_native_builder(Config(
+        model="SRGNN", dataset="diginetica_shape",
+        config_dict=session_config(tmp, "SRGNN")))
+    paths, runs, summary = {}, {}, {}
+    for name in SESSION_MODELS:
+        run = session_path(tmp, name, dev)
+        paths[f"{name.lower()}_train"] = run["counts"]
+        summary[name] = run["summary"]
+        if name in SESSION_SERVED:        # SRGNN's also feeds the cell
+            runs[name] = run
+        del run
+        torch.cuda.empty_cache()
+    serving = {}
+    for name in SESSION_SERVED:
+        serving[name] = session_serve(runs[name], name, dev)
+        paths[f"{name.lower()}_serve"] = serving[name]["counts"]
+    cell_paths, cell = sparse_cell_on_kernels(runs["SRGNN"], dev)
+    paths.update(cell_paths)
+    log(json.dumps({"session_models": summary, "session_serving": serving,
+                    "srgnn_cell": cell, "native_builder": native_check,
+                    "card": card}))
+    with open(out_path, "w") as f:
+        json.dump({"paths": paths, "summary": summary, "serving": serving,
+                   "srgnn_cell": cell, "card": card}, f)
+    return 0
+
+
+def run_session_phase(tmp: str) -> dict:
+    """Run :func:`session_main` in a child process; its output goes to
+    this process's; a failure there fails here."""
+    out_path = os.path.join(tmp, "session_phase.json")
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--session", tmp, out_path])
+    if r.returncode != 0:
+        raise AssertionError(f"the session phase failed (exit "
+                             f"{r.returncode})")
+    log(f"session phase: {time.perf_counter() - t0:.1f} s")
+    with open(out_path) as f:
+        return json.load(f)
+
+
 # -- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -1764,6 +2300,9 @@ def main() -> int:
         general = run_general_phase(tmp)
         paths.update(general["paths"])
         profiles.update(general["profiles"])
+        # 8. the session family, last, in a process of its own
+        session = run_session_phase(tmp)
+        paths.update(session["paths"])
     log(f"slice degrees: max real {int(real.max())} (row {hub}, D1 block "
         f"{hub // 64} holds {hub_edges} edges), padding tail {tail} on row "
         f"{n - 1} (real degree {int(real[-1])}); transpose: max "
@@ -1892,15 +2431,16 @@ def main() -> int:
                         m for m in GENERAL_MODELS if GENERAL_STEP_SPMMS[m])}}
 
     ell_paths = ("ell_train", "ell_serve", "simgcl_train", "xsimgcl_train",
-                 "sgl_serve") + tuple(f"{m.lower()}_train"
-                                      for m in GENERAL_MODELS)
+                 "sgl_serve", "srgnn_cell_ell") + tuple(
+                     f"{m.lower()}_train" for m in GENERAL_MODELS)
     print(json.dumps({"kernels": [
         {"name": "segment_spmm", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
          "replaces": "recbole_gnn_tpu/ops/pallas_spmm.py:227",
          "replaces_function": "_spmm_kernel",
          "launches": paths["pallas_train"]["segment_spmm"]
-         + paths["pallas_serve"]["segment_spmm"],
+         + paths["pallas_serve"]["segment_spmm"]
+         + paths["srgnn_cell_pallas"]["segment_spmm"],
          "launches_by_path": by_path("segment_spmm"),
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound, "bound_by": bound_by(n_bytes, flops),
@@ -1916,7 +2456,8 @@ def main() -> int:
          "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
          "replaces": "recbole_gnn_tpu/ops/spmm.py:339",
          "replaces_function": "_spmm_core_bwd (pallas_spmm over rev_*)",
-         "launches": paths["pallas_train"]["segment_spmm_transpose"],
+         "launches": paths["pallas_train"]["segment_spmm_transpose"]
+         + paths["srgnn_cell_pallas"]["segment_spmm_transpose"],
          "launches_by_path": by_path("segment_spmm_transpose"),
          "max_abs_err": max_err_t, "ms": kernel_t_ms,
          "plain_ms": plain_t_ms, "bound_ms": bound_t,
@@ -1978,4 +2519,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--general":
         sys.exit(general_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--session":
+        sys.exit(session_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -2,11 +2,12 @@
 
 Port of ``recbole_gnn_tpu/data/dataset.py`` — ``Dataset`` and
 ``GeneralGraphDataset``: value-interval filtering, iterative k-core
-filtering (the numpy loop; the JAX package's C++ fast path gives the
-same result and comes with the session slice), first-appearance token
-remap with [PAD]=0, ratio / leave-one-out splits, and the normalised
-user-item graph with its dense/sparse dispatch.  All host-side numpy;
-only the finished graph is moved to a device.
+filtering (the C++ fixed point of ``native/`` where it builds, else the
+numpy loop; both keep the same rows), first-appearance token remap with
+[PAD]=0, ratio / leave-one-out splits, and the normalised user-item
+graph with its dense/sparse dispatch.  All host-side numpy; only the
+finished graph is moved to a device.  The sequential datasets live in
+``data/session.py`` and are exported here, as the registry names them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from recbole_gnn_tpu_torch import native
 from recbole_gnn_tpu_torch.data.atomic import (TOKEN, atomic_path,
                                                read_atomic_file)
 from recbole_gnn_tpu_torch.ops.spmm import build_dense_bipartite, build_graph
@@ -117,10 +119,17 @@ class Dataset:
 
     def _filter_by_inter_num(self):
         """Iterative k-core: drop users/items outside their count interval
-        until a fixed point, mirroring [recbole] `_filter_by_inter_num`."""
+        until a fixed point, mirroring [recbole] `_filter_by_inter_num`.
+
+        Uses the native C++ fixed-point filter when it is available;
+        the numpy isin loop otherwise."""
         u_spec = self.config["user_inter_num_interval"]
         i_spec = self.config["item_inter_num_interval"]
         if not u_spec and not i_spec:
+            return
+        keep = self._kcore_native(u_spec, i_spec)
+        if keep is not None:
+            self._apply_inter_mask(keep)
             return
         while True:
             users = self.inter[self.uid_field]
@@ -137,6 +146,34 @@ class Dataset:
             if keep.all():
                 break
             self._apply_inter_mask(keep)
+
+    def _kcore_native(self, u_spec, i_spec):
+        """The C++ path: count intervals as integer bounds, tokens
+        factorised to ints first (they are not remapped yet)."""
+        def bounds(spec):
+            if not spec:
+                return 0, np.iinfo(np.int64).max
+            lo, hi, lo_inc, hi_inc = parse_interval(spec)
+            lo_i = int(np.ceil(lo)) if np.isfinite(lo) else 0
+            if np.isfinite(lo) and not lo_inc and lo_i == lo:
+                lo_i += 1
+            hi_i = (int(np.floor(hi)) if np.isfinite(hi)
+                    else np.iinfo(np.int64).max)
+            if np.isfinite(hi) and not hi_inc and hi_i == hi:
+                hi_i -= 1
+            return lo_i, hi_i
+
+        users_t = self.inter[self.uid_field]
+        items_t = self.inter[self.iid_field]
+        if len(users_t) == 0:
+            return None
+        users = pd.factorize(users_t)[0].astype(np.int64)
+        items = pd.factorize(items_t)[0].astype(np.int64)
+        u_lo, u_hi = bounds(u_spec)
+        i_lo, i_hi = bounds(i_spec)
+        return native.kcore_filter_native(
+            users, items, int(users.max()) + 1, int(items.max()) + 1,
+            u_lo, u_hi, i_lo, i_hi)
 
     def _apply_inter_mask(self, keep: np.ndarray):
         self.inter = {k: v[keep] for k, v in self.inter.items()}
@@ -366,4 +403,12 @@ class GeneralGraphDataset(Dataset):
                            with_ell=impl == "ell")
 
 
-__all__ = ["Dataset", "GeneralGraphDataset", "parse_interval"]
+# the sequential datasets live in data/session.py; exported here, where
+# the registry looks dataset classes up
+from recbole_gnn_tpu_torch.data.session import (  # noqa: E402
+    GCEGNNDataset, LESSRDataset, MultiBehaviorDataset, SequentialDataset,
+    SessionGraphDataset)
+
+__all__ = ["Dataset", "GeneralGraphDataset", "SequentialDataset",
+           "SessionGraphDataset", "LESSRDataset", "GCEGNNDataset",
+           "MultiBehaviorDataset", "parse_interval"]

@@ -1,12 +1,15 @@
 """Batch loaders — static-shape numpy batch dicts.
 
-Numpy copy of the general-model loaders of
-``recbole_gnn_tpu/data/loader.py`` (``TrainLoader``,
-``FullSortEvalLoader``, ``NegSampleEvalLoader``): the same seeds give
-the same batches, element for element, in both packages.  Every batch
-of an epoch has the same shapes — the last one is padded by repeating
-row 0 with a ``weight`` of 0 — so losses and metric sums ignore the
-padding.  The sequential loaders come with the session slice.
+Numpy copy of ``recbole_gnn_tpu/data/loader.py``: the general-model
+loaders (``TrainLoader``, ``FullSortEvalLoader``,
+``NegSampleEvalLoader``) and the sequential ones
+(``SequentialTrainLoader`` with its optional BPR negatives,
+``SequentialFullSortEvalLoader``, ``SequentialNegSampleEvalLoader``):
+the same seeds give the same batches, element for element, in both
+packages.  Every batch of an epoch has the same shapes — the last one
+is padded by repeating row 0 with a ``weight`` of 0 — so losses and
+metric sums ignore the padding.  A session batch is a slice of the
+dataset's padded session (and session-graph) arrays.
 """
 
 from __future__ import annotations
@@ -203,3 +206,113 @@ class NegSampleEvalLoader:
             yield _pad_batch(
                 {"user_id": users, "candidates": cand, "cand_len": cand_len,
                  "pos_items": pos, "pos_len": pos_len}, B)
+
+
+# -- sequential ---------------------------------------------------------
+
+def _session_batch(dataset, rows: np.ndarray) -> Batch:
+    b: Batch = {
+        "user_id": dataset.inter[dataset.uid_field][rows],
+        "item_id": dataset.inter[dataset.iid_field][rows],
+        "item_seq": dataset.inter[dataset.item_list_field][rows],
+        "item_seq_len": dataset.inter[dataset.item_length_field][rows],
+    }
+    graphs = getattr(dataset, "session_graphs", None)
+    if graphs is not None:
+        for k, v in graphs.items():
+            b[k] = v[rows]
+    return b
+
+
+class SequentialTrainLoader:
+    """Shuffled batches of padded session rows (+ graph arrays).  The
+    sequential family trains without negative sampling (CE over the
+    catalog — reference sequential_base.yaml)."""
+
+    def __init__(self, dataset, config, seed_offset: int = 0):
+        self.dataset = dataset
+        self.n = dataset.inter_num
+        self.batch_size = int(config.or_default("train_batch_size", 2048))
+        self.seed = int(config.get("seed", 2020)) + seed_offset
+        self.epoch = 0
+        neg_args = config["train_neg_sample_args"]
+        self.neg_num = int((neg_args or {}).get("sample_num", 1)) if neg_args else 0
+        if self.neg_num:
+            users, items = dataset.user_item_arrays()
+            self.sampler = UniformNegativeSampler(
+                users, items, dataset.n_users, dataset.n_items)
+
+    def __len__(self):
+        return -(-self.n // self.batch_size)
+
+    def __iter__(self) -> Iterator[Batch]:
+        rng = np.random.default_rng((self.seed, self.epoch))
+        self.epoch += 1
+        perm = rng.permutation(self.n)
+        for lo in range(0, self.n, self.batch_size):
+            rows = perm[lo:lo + self.batch_size]
+            b = _session_batch(self.dataset, rows)
+            if self.neg_num:
+                negs = self.sampler.sample(b["user_id"], self.neg_num, rng)
+                b["neg_item_id"] = negs[:, 0] if self.neg_num == 1 else negs
+            yield _pad_batch(b, self.batch_size)
+
+
+class SequentialFullSortEvalLoader:
+    """Full-sort eval for sequential models: each row is one session,
+    the single positive is its target; no history masking ([recbole]
+    skips uid2history for sequential full-sort)."""
+
+    def __init__(self, dataset, config):
+        self.dataset = dataset
+        self.n = dataset.inter_num
+        self.n_items = dataset.n_items
+        self.batch_size = max(1, int(config.or_default("eval_batch_size", 4096)))
+
+    def __len__(self):
+        return -(-self.n // self.batch_size)
+
+    def __iter__(self) -> Iterator[Batch]:
+        for lo in range(0, self.n, self.batch_size):
+            rows = np.arange(lo, min(lo + self.batch_size, self.n))
+            b = _session_batch(self.dataset, rows)
+            b["pos_items"] = b["item_id"].reshape(-1, 1).astype(np.int64)
+            b["pos_len"] = np.ones(len(rows), dtype=np.int64)
+            yield _pad_batch(b, self.batch_size)
+
+
+class SequentialNegSampleEvalLoader:
+    """uniN eval for sequential: target + N sampled negatives per row."""
+
+    def __init__(self, dataset, history_datasets, config,
+                 sample_num: int, distribution: str = "uni"):
+        self.dataset = dataset
+        self.n = dataset.inter_num
+        self.sample_num = sample_num
+        self.batch_size = max(1, int(config.or_default("eval_batch_size", 4096)))
+        self.seed = int(config.get("seed", 2020))
+        users_all, items_all = [], []
+        for ds in list(history_datasets) + [dataset]:
+            u, i = ds.user_item_arrays()
+            users_all.append(u)
+            items_all.append(i)
+        self.sampler = _eval_sampler_cls(distribution)(
+            np.concatenate(users_all), np.concatenate(items_all),
+            dataset.n_users, dataset.n_items)
+
+    def __len__(self):
+        return -(-self.n // self.batch_size)
+
+    def __iter__(self) -> Iterator[Batch]:
+        rng = np.random.default_rng((self.seed, 77))
+        for lo in range(0, self.n, self.batch_size):
+            rows = np.arange(lo, min(lo + self.batch_size, self.n))
+            b = _session_batch(self.dataset, rows)
+            users = b["user_id"]
+            pos = b["item_id"].astype(np.int64)
+            negs = self.sampler.sample(users, self.sample_num, rng)
+            b["candidates"] = np.concatenate([pos.reshape(-1, 1), negs], axis=1)
+            b["cand_len"] = np.full(len(rows), 1 + self.sample_num, np.int64)
+            b["pos_items"] = pos.reshape(-1, 1)
+            b["pos_len"] = np.ones(len(rows), dtype=np.int64)
+            yield _pad_batch(b, self.batch_size)

@@ -1,18 +1,22 @@
 """Evaluator — full-sort and uniN/popN top-k evaluation.
 
-Port of the general paths of ``recbole_gnn_tpu/eval/evaluator.py``.
-Factorized models propagate the full graph ONCE per evaluation (under
+Port of ``recbole_gnn_tpu/eval/evaluator.py``.  Factorized models
+propagate the full graph ONCE per evaluation (under
 ``torch.no_grad()``), then score each batch of users against the whole
 catalog (U·Iᵀ with ``torch.matmul``, which the JAX package leaves to
 XLA), mask the train history and the PAD item to ``NEG_INF`` by
 ``scatter_`` on the 0-padded history matrix, and take ``torch.topk``.
 uniN/popN rank within sampled candidate lists.  Non-factorized models
-score through ``model.score_users_vs_all``.
+score through ``model.score_users_vs_all``.  Sequential models score
+each session batch with ``model.full_scores(..., train=False)``: full
+sort sets the PAD column to ``NEG_INF`` and masks no history (the
+[recbole] sequential convention), uniN/popN rank the target among its
+sampled candidates.
 
 Metric contributions are weighted sums (padded eval rows have weight 0)
 kept on the device and read once at the end.  ``eval_scan`` (a TPU
 dispatch-latency knob) runs the same per-batch loop with the same
-results.  The sequential path and mesh-sharded scoring are not ported.
+results.  Mesh-sharded scoring is not ported.
 """
 
 from __future__ import annotations
@@ -38,10 +42,6 @@ def to_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
 class Evaluator:
 
     def __init__(self, config, model, mesh=None):
-        if model.model_type == ModelType.SEQUENTIAL:
-            raise NotImplementedError(
-                "sequential evaluation is not ported to recbole_gnn_tpu_torch "
-                "yet (ROADMAP §1 Slice C item 6)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded evaluation is not ported to "
@@ -54,6 +54,7 @@ class Evaluator:
         self.metrics = tuple(m.lower() for m in config.or_default(
             "metrics", ["Recall", "MRR", "NDCG", "Hit", "Precision"]))
         self.n_items = model.n_items
+        self.is_sequential = model.model_type == ModelType.SEQUENTIAL
 
     # -- per-batch scoring --------------------------------------------
 
@@ -64,6 +65,16 @@ class Evaluator:
         sums = {k: (v * w).sum() for k, v in vals.items()}
         sums["__weight__"] = w.sum()
         return sums
+
+    def _sequential_sums(self, params, extras, batch, mode):
+        scores = self.model.full_scores(params, self.model.consts, extras,
+                                        batch, None, False)
+        if mode == "full":
+            scores[:, 0] = NEG_INF   # PAD item; no history mask
+            _, idx = masked_topk(scores, self.max_k)
+            return self._metric_sums(idx, batch)
+        return self._candidate_sums(
+            torch.gather(scores, 1, batch["candidates"]), batch)
 
     def _full_sort_sums(self, scores, batch):
         """Mask history + PAD on a (B, n_items) score matrix, top-k."""
@@ -92,28 +103,31 @@ class Evaluator:
         """Run a full evaluation pass; returns {metric@k: float}."""
         totals: dict[str, torch.Tensor] = {}
         with torch.no_grad():
-            if self.model.factorized_eval:
+            if self.is_sequential:
+                def batch_sums(b):
+                    return self._sequential_sums(params, extras, b, mode)
+            elif self.model.factorized_eval:
                 user_all, item_all = self.model.propagate(
                     params, self.model.consts, extras)
-            for batch in loader:
-                b = to_device(batch, self.device)
-                users = b["user_id"]
-                if self.model.factorized_eval:
-                    u_e = user_all[users]
+
+                def batch_sums(b):
+                    u_e = user_all[b["user_id"]]
                     if mode == "full":
-                        sums = self._full_sort_sums(
+                        return self._full_sort_sums(
                             torch.matmul(u_e, item_all.T), b)
-                    else:
-                        c_e = item_all[b["candidates"]]
-                        sums = self._candidate_sums(
-                            torch.einsum("bd,bcd->bc", u_e, c_e), b)
-                else:
-                    scores = self.model.score_users_vs_all(params, users)
+                    c_e = item_all[b["candidates"]]
+                    return self._candidate_sums(
+                        torch.einsum("bd,bcd->bc", u_e, c_e), b)
+            else:
+                def batch_sums(b):
+                    scores = self.model.score_users_vs_all(params,
+                                                           b["user_id"])
                     if mode == "full":
-                        sums = self._full_sort_sums(scores, b)
-                    else:
-                        sums = self._candidate_sums(
-                            torch.gather(scores, 1, b["candidates"]), b)
+                        return self._full_sort_sums(scores, b)
+                    return self._candidate_sums(
+                        torch.gather(scores, 1, b["candidates"]), b)
+            for batch in loader:
+                sums = batch_sums(to_device(batch, self.device))
                 for k, v in sums.items():
                     totals[k] = v if k not in totals else totals[k] + v
         if not totals:

@@ -3,8 +3,8 @@
 Port of ``recbole_gnn_tpu/models/__init__.py``.  The table lists every
 model of the JAX package, because ``Config`` needs ``model_info`` for
 each of them; ``get_model`` returns only the models ported so far and
-names the ROADMAP item that ports each of the others (the session and
-social families).
+names the ROADMAP item that ports each of the others (GCEGNN, LESSR and
+the social family).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ _G = ModelType.GENERAL
 _S = ModelType.SEQUENTIAL
 _SO = ModelType.SOCIAL
 
-_SESSION = "ROADMAP §1 Slice C items 5-6 (session data and models)"
+_SESSION = "ROADMAP §1 Slice C item 6 (GCEGNN, LESSR)"
 _SOCIAL = "ROADMAP §1 Slice D item 7 (social models)"
 
 _REGISTRY: dict[str, ModelInfo] = {}
@@ -54,12 +54,11 @@ _reg("LightGCL", "general.lightgcl", "LightGCL", _G, "GeneralGraphDataset")
 _reg("SSL4REC", "general.ssl4rec", "SSL4REC", _G, "GeneralGraphDataset")
 
 # -- sequential session-graph recommenders -----------------------------
-_reg("SRGNN", "sequential.srgnn", "SRGNN", _S, "SessionGraphDataset", _SESSION)
-_reg("GCSAN", "sequential.gcsan", "GCSAN", _S, "SessionGraphDataset", _SESSION)
-_reg("NISER", "sequential.niser", "NISER", _S, "SessionGraphDataset", _SESSION)
-_reg("TAGNN", "sequential.tagnn", "TAGNN", _S, "SessionGraphDataset", _SESSION)
-_reg("SGNNHN", "sequential.sgnnhn", "SGNNHN", _S, "SessionGraphDataset",
-     _SESSION)
+_reg("SRGNN", "sequential.srgnn", "SRGNN", _S, "SessionGraphDataset")
+_reg("GCSAN", "sequential.gcsan", "GCSAN", _S, "SessionGraphDataset")
+_reg("NISER", "sequential.niser", "NISER", _S, "SessionGraphDataset")
+_reg("TAGNN", "sequential.tagnn", "TAGNN", _S, "SessionGraphDataset")
+_reg("SGNNHN", "sequential.sgnnhn", "SGNNHN", _S, "SessionGraphDataset")
 _reg("GCEGNN", "sequential.gcegnn", "GCEGNN", _S, "GCEGNNDataset", _SESSION)
 _reg("LESSR", "sequential.lessr", "LESSR", _S, "LESSRDataset", _SESSION)
 
@@ -71,11 +70,9 @@ _reg("SEPT", "social.sept", "SEPT", _SO, "SocialDataset", _SOCIAL)
 # -- RecBole fallback baselines -----------------------------------------
 _reg("BPR", "general.bpr", "BPR", _G, "GeneralGraphDataset")
 _reg("NeuMF", "general.neumf", "NeuMF", _G, "GeneralGraphDataset")
-_reg("GRU4Rec", "sequential.gru4rec", "GRU4Rec", _S, "SequentialDataset",
-     _SESSION)
-_reg("NARM", "sequential.narm", "NARM", _S, "SequentialDataset", _SESSION)
-_reg("SASRec", "sequential.sasrec", "SASRec", _S, "SequentialDataset",
-     _SESSION)
+_reg("GRU4Rec", "sequential.gru4rec", "GRU4Rec", _S, "SequentialDataset")
+_reg("NARM", "sequential.narm", "NARM", _S, "SequentialDataset")
+_reg("SASRec", "sequential.sasrec", "SASRec", _S, "SequentialDataset")
 
 
 def model_info(name: str) -> ModelInfo:

@@ -1,7 +1,8 @@
 """Abstract recommenders — the model contract.
 
 Port of ``recbole_gnn_tpu/models/base.py`` (``BaseRecommender``,
-``GeneralGraphRecommender``), keeping its functional contract:
+``GeneralGraphRecommender``, ``SequentialRecommender``), keeping its
+functional contract:
 
   * a model *object* holds only static hyperparameters and ``device``;
   * graph constants live in ``self.consts`` (tensors on ``device``);
@@ -20,6 +21,7 @@ from typing import Any
 
 import torch
 
+from recbole_gnn_tpu_torch.models.losses import cross_entropy
 from recbole_gnn_tpu_torch.quick_start import resolve_device
 from recbole_gnn_tpu_torch.utils.enums import InputType, ModelType
 
@@ -105,3 +107,26 @@ class GeneralGraphRecommender(BaseRecommender):
                       ) -> torch.Tensor:
         u, i = self.propagate(params, consts, extras)
         return (u[users] * i[items]).sum(-1)
+
+
+class SequentialRecommender(BaseRecommender):
+    """Session-graph / sequence models.  Batches carry padded session
+    arrays (``data/session.py``); scoring is full-catalog logits."""
+
+    model_type = ModelType.SEQUENTIAL
+    input_type = InputType.POINTWISE
+
+    def __init__(self, config, dataset, device: torch.device | str | None = None):
+        super().__init__(config, dataset, device)
+        self.max_seq_len = int(config.get("MAX_ITEM_LIST_LENGTH", 50))
+
+    def full_scores(self, params: Params, consts: Consts, extras: Extras,
+                    batch: Batch, rng: torch.Generator | None, train: bool
+                    ) -> torch.Tensor:
+        """(B, n_items) logits over the catalog (col 0 = PAD)."""
+        raise NotImplementedError
+
+    def calculate_loss(self, params, consts, extras, batch, rng, mode=0):
+        logits = self.full_scores(params, consts, extras, batch, rng, True)
+        loss = cross_entropy(logits, batch["item_id"], batch.get("weight"))
+        return loss, {"ce": loss}

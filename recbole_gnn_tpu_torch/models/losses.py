@@ -1,6 +1,6 @@
-"""Loss library — BPR, EmbLoss, the InfoNCE variants and DirectAU's
-alignment / uniformity (port of the general models' part of
-``recbole_gnn_tpu/models/losses.py``).
+"""Loss library — BPR, EmbLoss, the InfoNCE variants, DirectAU's
+alignment / uniformity and the sequential family's full-catalog cross
+entropy (port of ``recbole_gnn_tpu/models/losses.py``).
 
 Semantics match the [recbole] losses the reference imports: BPRLoss
 with gamma = 1e-10, EmbLoss with its ``require_pow`` branch; the
@@ -47,6 +47,15 @@ def bpr_loss(pos_scores: torch.Tensor, neg_scores: torch.Tensor,
     large negative margins, where logsigmoid keeps growing."""
     return _wmean(-torch.log(gamma + torch.sigmoid(pos_scores - neg_scores)),
                   weight)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean CE over full-catalog logits (the sequential family's
+    default loss)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, 1, targets[:, None])[:, 0]
+    return _wmean(nll, weight)
 
 
 def emb_loss(embeddings: list[torch.Tensor],

@@ -1,11 +1,11 @@
 """Quick-start pipeline: config → data → model → train → eval.
 
-Port of ``recbole_gnn_tpu/quick_start.py`` for the general models
-(``create_dataset`` with its ``save_dataset`` cache, ``data_preparation``
-with its ``save_dataloaders`` cache, ``run_recbole_gnn_tpu``,
-``objective_function``) plus ``resolve_device``: entry points run on
-the card unless ``use_gpu: False`` or ``device="cpu"`` is given.  The
-sequential loaders come with the session slice.
+Port of ``recbole_gnn_tpu/quick_start.py`` (``create_dataset`` with
+its ``save_dataset`` cache, ``data_preparation`` with its
+``save_dataloaders`` cache and its general and sequential loaders,
+``run_recbole_gnn_tpu``, ``objective_function``) plus
+``resolve_device``: entry points run on the card unless
+``use_gpu: False`` or ``device="cpu"`` is given.
 """
 
 from __future__ import annotations
@@ -17,9 +17,9 @@ import time
 import torch
 
 from recbole_gnn_tpu_torch.config import Config
-from recbole_gnn_tpu_torch.data.loader import (FullSortEvalLoader,
-                                               NegSampleEvalLoader,
-                                               TrainLoader)
+from recbole_gnn_tpu_torch.data.loader import (
+    FullSortEvalLoader, NegSampleEvalLoader, SequentialFullSortEvalLoader,
+    SequentialNegSampleEvalLoader, SequentialTrainLoader, TrainLoader)
 from recbole_gnn_tpu_torch.models import get_dataset_class, get_model
 from recbole_gnn_tpu_torch.ops.spmm import SPMM_IMPLS, SPMM_PRECISIONS
 from recbole_gnn_tpu_torch.train.trainer import get_trainer
@@ -136,12 +136,9 @@ def data_preparation(config, dataset):
     each a (loader, split dataset) pair; the model is built on the
     train split.
 
-    With ``save_dataloaders`` the three splits pickle beside the
-    dataset cache and reload when the cache key matches."""
-    if config["MODEL_TYPE"] == ModelType.SEQUENTIAL:
-        raise NotImplementedError(
-            "sequential loaders are not ported to recbole_gnn_tpu_torch "
-            "yet (ROADMAP §1 Slice C item 5)")
+    With ``save_dataloaders`` the three splits (with their session-graph
+    arrays) pickle beside the dataset cache and reload when the cache
+    key matches."""
     splits = None
     if config["save_dataloaders"]:
         cache_path = os.path.join(
@@ -159,6 +156,19 @@ def data_preparation(config, dataset):
     train_ds, valid_ds, test_ds = splits or dataset.build()
 
     mode, sample_num = _parse_eval_mode(config)
+    if config["MODEL_TYPE"] == ModelType.SEQUENTIAL:
+        train_loader = SequentialTrainLoader(train_ds, config)
+        if mode == "full":
+            valid_loader = SequentialFullSortEvalLoader(valid_ds, config)
+            test_loader = SequentialFullSortEvalLoader(test_ds, config)
+        else:
+            valid_loader = SequentialNegSampleEvalLoader(
+                valid_ds, [train_ds], config, sample_num, distribution=mode)
+            test_loader = SequentialNegSampleEvalLoader(
+                test_ds, [train_ds, valid_ds], config, sample_num,
+                distribution=mode)
+        return (train_loader, train_ds), (valid_loader, valid_ds), \
+            (test_loader, test_ds)
     train_loader = TrainLoader(train_ds, config)
     if mode == "full":
         valid_loader = FullSortEvalLoader(valid_ds, [train_ds], config)

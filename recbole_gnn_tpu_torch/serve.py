@@ -2,12 +2,14 @@
 answer top-k recommendation queries from it.
 
 Port of ``recbole_gnn_tpu/serve.py`` (``export_artifact``,
-``RecServer``, ``make_http_server`` and the ``export``/``query``/
-``http`` CLI verbs; the artifact's keys and meta are the same, so each
-package's server reads the other's artifacts).  A factorized model
-collapses at serving time to two dense tables: propagate once, then
-every query is one (B, d) × (d, n_items) product, the history and PAD
-mask, and an exact top-k.
+``RecServer``, ``SessionServer``, ``make_http_server`` and the
+``export``/``query``/``http``/``session`` CLI verbs; the artifact's keys
+and meta are the same, so each package's server reads the other's
+artifacts).  A factorized model collapses at serving time to two dense
+tables: propagate once, then every query is one (B, d) × (d, n_items)
+product, the history and PAD mask, and an exact top-k.  A sequential
+model scores sessions, so ``SessionServer`` rebuilds it from its
+checkpoint and runs its forward per request batch.
 
 Entry points run on the card unless the caller asks for the CPU
 (``--use_gpu=False``, config ``use_gpu: False`` or ``device="cpu"``).
@@ -20,6 +22,10 @@ CLI:
       --users 196 186 22 -k 10 [--use_gpu=False]
   python -m recbole_gnn_tpu_torch.serve http --artifact /tmp/... --port 8080
       # POST /recommend {"users": ["196"], "k": 10}; GET /healthz
+  python -m recbole_gnn_tpu_torch.serve session -m SRGNN -d diginetica \
+      [--checkpoint saved/SRGNN-diginetica.ckpt] (--session 214 9 37 -k 10
+      | --http 8080) [--key=value ...]
+      # POST /recommend {"sessions": [["214", "9"]], "k": 10}
 """
 
 from __future__ import annotations
@@ -30,9 +36,13 @@ import os
 import numpy as np
 import torch
 
-from recbole_gnn_tpu_torch.models import get_model
+from recbole_gnn_tpu_torch.data.session import build_session_graphs
+from recbole_gnn_tpu_torch.models import get_model, model_info
 from recbole_gnn_tpu_torch.ops.topk import NEG_INF, masked_topk
-from recbole_gnn_tpu_torch.quick_start import create_dataset, resolve_device
+from recbole_gnn_tpu_torch.quick_start import (create_dataset,
+                                               data_preparation,
+                                               resolve_device)
+from recbole_gnn_tpu_torch.eval.evaluator import to_device
 from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
                                                    params_from_numpy)
 from recbole_gnn_tpu_torch.utils.enums import ModelType
@@ -41,6 +51,27 @@ ARTIFACT_VERSION = 1
 
 
 # -- export -------------------------------------------------------------
+
+def _load_checkpoint_for(config, checkpoint_path: str | None
+                         ) -> tuple[str, dict]:
+    """(path, state) of the checkpoint to serve: ``checkpoint_path`` or
+    the trainer's save path (``{checkpoint_dir}/{model}-{dataset}.ckpt``);
+    its stored ``config.model``/``config.dataset`` must equal
+    ``config``'s, so a stale checkpoint of another model is refused."""
+    ckpt = checkpoint_path or os.path.join(
+        config["checkpoint_dir"] or "saved/",
+        f"{config['model']}-{config['dataset']}.ckpt")
+    state = load_checkpoint(ckpt)
+    stored = state.get("config") or {}
+    want = {"model": str(config["model"]), "dataset": str(config["dataset"])}
+    got = {k: (None if stored.get(k) is None else str(stored.get(k)))
+           for k in want}
+    if got != want:
+        raise ValueError(
+            f"checkpoint {ckpt!r} was stored for {got}, not for the "
+            f"serving config's {want}")
+    return ckpt, state
+
 
 def export_artifact(config, out_path: str, checkpoint_path: str | None = None,
                     mask_splits: str = "all", compress: bool = False,
@@ -59,20 +90,9 @@ def export_artifact(config, out_path: str, checkpoint_path: str | None = None,
     dev = resolve_device(config, device)
     if config["MODEL_TYPE"] == ModelType.SEQUENTIAL:
         raise ValueError(
-            "sequential models score sessions, not user ids — session "
-            "serving is not ported yet (ROADMAP §1 Slice C item 6)")
-    ckpt = checkpoint_path or os.path.join(
-        config["checkpoint_dir"] or "saved/",
-        f"{config['model']}-{config['dataset']}.ckpt")
-    state = load_checkpoint(ckpt)
-    stored = state.get("config") or {}
-    want = {"model": str(config["model"]), "dataset": str(config["dataset"])}
-    got = {k: (None if stored.get(k) is None else str(stored.get(k)))
-           for k in want}
-    if got != want:
-        raise ValueError(
-            f"checkpoint {ckpt!r} was stored for {got}, not for the export "
-            f"config's {want}")
+            "sequential models score sessions, not user ids — serve them "
+            "from their checkpoint with SessionServer (the session verb)")
+    ckpt, state = _load_checkpoint_for(config, checkpoint_path)
 
     ds = create_dataset(config)
     train_ds, valid_ds, test_ds = ds.build()
@@ -209,17 +229,136 @@ class RecServer:
         return idx, vals
 
 
+# -- session serving ------------------------------------------------------
+
+def _pad_to_bucket(n: int, buckets) -> int:
+    """Next batch bucket ≥ n (beyond the last: round up to its
+    multiple), so request shapes stay few."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return -(-n // buckets[-1]) * buckets[-1]
+
+
+class SessionServer:
+    """Real-time session-based recommendation from a checkpoint.
+
+    Rebuilds the model once at startup (config → dataset for the vocab
+    and shapes → model + params on ``device``, default per
+    :func:`resolve_device`), then serves ad-hoc sessions: item-token
+    lists → padded ``(B, L)`` arrays, padded to a batch bucket of
+    1 / 8 / 64 / 256 (then multiples of 256) by repeating row 0, plus
+    the SR-GNN session-graph arrays for a ``SessionGraphDataset`` model,
+    built by the training path (``data/session.build_session_graphs``,
+    the C++ builder where it is available) → ``full_scores`` → the PAD
+    column masked → exact top-k.  No history mask: the [recbole]
+    sequential full-sort convention.  Tied scores may come back in
+    another order than the JAX package's.
+
+    Serves the ``SequentialDataset`` and ``SessionGraphDataset`` models
+    (GRU4Rec, NARM, SASRec; SRGNN, GCSAN, NISER, TAGNN, SGNNHN).  It
+    keeps no per-request state (no per-(batch, k) cache), so the
+    threading HTTP server's concurrent calls need no lock.
+    """
+
+    BATCH_BUCKETS = (1, 8, 64, 256)
+
+    def __init__(self, config, checkpoint_path: str | None = None,
+                 device: torch.device | str | None = None):
+        self.device = resolve_device(config, device)
+        if config["MODEL_TYPE"] != ModelType.SEQUENTIAL:
+            raise ValueError("SessionServer serves sequential models; use "
+                             "RecServer + export_artifact for general "
+                             "models")
+        info = model_info(config["model"])
+        if info.dataset_class not in ("SequentialDataset",
+                                      "SessionGraphDataset"):
+            raise NotImplementedError(
+                f"serving {info.name} ({info.dataset_class}) is not ported "
+                f"to recbole_gnn_tpu_torch yet: {info.pending}")
+        self._graphs = info.dataset_class == "SessionGraphDataset"
+        ckpt, state = _load_checkpoint_for(config, checkpoint_path)
+        # data_preparation for the split cache (save_dataloaders): a
+        # restart then skips augmentation and graph construction
+        (_, train_ds), _, _ = data_preparation(config,
+                                               create_dataset(config))
+        self.model = get_model(config["model"])(config, train_ds,
+                                                self.device)
+        self.params = params_from_numpy(state["params"], self.device)
+        self.extras = params_from_numpy(state.get("extras") or {},
+                                        self.device)
+        self.item_tokens = np.asarray(
+            train_ds.field2id_token[train_ds.iid_field], dtype=str)
+        self._tok2iid = {str(t): i for i, t in enumerate(self.item_tokens)}
+        self.max_seq_len = int(train_ds.max_seq_len)
+        self.n_items = int(train_ds.n_items)
+        self.meta = {"model": str(config["model"]),
+                     "dataset": str(config["dataset"]), "checkpoint": ckpt}
+
+    def session_batch(self, sessions) -> tuple[dict, int]:
+        """(numpy batch padded to its bucket, number of real rows) for
+        item-token sessions, oldest first; only each session's last
+        ``max_seq_len`` items are used, the training window."""
+        n, L = len(sessions), self.max_seq_len
+        seqs = np.zeros((n, L), dtype=np.int32)
+        lens = np.zeros(n, dtype=np.int32)
+        for r, s in enumerate(sessions):
+            ids = []
+            for t in s:
+                if str(t) not in self._tok2iid:
+                    raise KeyError(f"unknown item token {str(t)!r}")
+                ids.append(self._tok2iid[str(t)])
+            if not ids:
+                raise KeyError("empty session")
+            ids = ids[-L:]
+            seqs[r, :len(ids)] = ids
+            lens[r] = len(ids)
+        b = _pad_to_bucket(n, self.BATCH_BUCKETS)
+        if b > n:
+            seqs = np.concatenate([seqs, np.repeat(seqs[:1], b - n, axis=0)])
+            lens = np.concatenate([lens, np.repeat(lens[:1], b - n)])
+        batch = {"item_seq": seqs, "item_seq_len": lens}
+        if self._graphs:
+            batch.update(build_session_graphs(seqs, lens, L))
+        return batch, n
+
+    def recommend(self, sessions, k: int = 10, return_tokens: bool = True):
+        """Top-``k`` next items per session → ``(items, scores)``, items
+        as token lists when ``return_tokens`` else internal id arrays."""
+        if len(sessions) == 0:
+            empty = np.zeros((0, k), dtype=np.float32)
+            return ([] if return_tokens
+                    else np.zeros((0, k), dtype=np.int64)), empty
+        batch, n = self.session_batch(sessions)
+        with torch.inference_mode():
+            scores = self.model.full_scores(
+                self.params, self.model.consts, self.extras,
+                to_device(batch, self.device), None, False)
+            scores[:, 0] = NEG_INF   # PAD item
+            vals, idx = masked_topk(scores[:n], k)
+            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        if return_tokens:
+            items = [[str(self.item_tokens[j]) for j in row] for row in idx]
+            return items, vals
+        return idx, vals
+
+
 # -- minimal stdlib HTTP endpoint ----------------------------------------
 
-def make_http_server(server: RecServer, host: str = "127.0.0.1",
-                     port: int = 8080):
+def make_http_server(server, host: str = "127.0.0.1", port: int = 8080):
     """ThreadingHTTPServer wrapping ``server.recommend``.
 
-    POST /recommend {"users": [...], "k": 10, "mask_history": true}
-      → {"users": [...], "items": [[...]], "scores": [[...]]}
+    RecServer:     POST /recommend {"users": [...], "k": 10,
+                                    "mask_history": true}
+    SessionServer: POST /recommend {"sessions": [[tok, ...], ...],
+                                    "k": 10}
+      → {"users" | "sessions": [...], "items": [[...]], "scores": [[...]]}
     GET /healthz → {"status": "ok", "model": ..., "n_items": ...}
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    is_session = isinstance(server, SessionServer)
+    req_key = "sessions" if is_session else "users"
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, obj):
@@ -235,7 +374,8 @@ def make_http_server(server: RecServer, host: str = "127.0.0.1",
                 self._send(200, {"status": "ok",
                                  "model": server.meta["model"],
                                  "dataset": server.meta["dataset"],
-                                 "n_users": server.n_users,
+                                 "n_users": getattr(server, "n_users",
+                                                    None),
                                  "n_items": server.n_items})
             else:
                 self._send(404, {"error": "not found"})
@@ -247,11 +387,16 @@ def make_http_server(server: RecServer, host: str = "127.0.0.1",
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n) or b"{}")
-                items, scores = server.recommend(
-                    req["users"], k=int(req.get("k", 10)),
-                    mask_history=bool(req.get("mask_history", True)))
-                self._send(200, {"users": [str(u) for u in req["users"]],
-                                 "items": items,
+                if is_session:
+                    items, scores = server.recommend(
+                        req[req_key], k=int(req.get("k", 10)))
+                    echo = req[req_key]
+                else:
+                    items, scores = server.recommend(
+                        req[req_key], k=int(req.get("k", 10)),
+                        mask_history=bool(req.get("mask_history", True)))
+                    echo = [str(u) for u in req[req_key]]
+                self._send(200, {req_key: echo, "items": items,
                                  "scores": [[float(v) for v in row]
                                             for row in scores]})
             except KeyError as e:
@@ -298,21 +443,54 @@ def main(argv=None):
     h.add_argument("--host", default="127.0.0.1")
     h.add_argument("--port", type=int, default=8080)
 
+    se = sub.add_parser("session", help="session-based top-k from a "
+                                        "checkpoint (sequential models)")
+    se.add_argument("-m", "--model", required=True)
+    se.add_argument("-d", "--dataset", required=True)
+    se.add_argument("--config_files", nargs="*", default=None)
+    se.add_argument("--checkpoint", default=None)
+    se.add_argument("--session", nargs="+", default=None,
+                    help="item tokens, oldest first (one-shot query)")
+    se.add_argument("-k", type=int, default=10)
+    se.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve over HTTP instead of a one-shot query")
+    se.add_argument("--host", default="127.0.0.1")
+
     args, extra = ap.parse_known_args(argv)
     # --key=value overrides (run.py style); query/http read only
     # --use_gpu / --device from them
     params = parse_cli(extra)
-    if args.cmd != "export" and set(params) - {"use_gpu", "device"}:
+    if args.cmd not in ("export", "session") and \
+            set(params) - {"use_gpu", "device"}:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
-    if args.cmd == "export":
+    if args.cmd in ("export", "session"):
         config = Config(model=args.model, dataset=args.dataset,
                         config_file_list=args.config_files,
                         config_dict=params)
+    if args.cmd == "export":
         out = export_artifact(config, args.out,
                               checkpoint_path=args.checkpoint,
                               mask_splits=args.mask_splits,
                               compress=args.compress)
         print(f"wrote {out}")
+        return
+    if args.cmd == "session":
+        if args.http is None and not args.session:
+            ap.error("session: pass --session tokens or --http PORT")
+        srv = SessionServer(config, checkpoint_path=args.checkpoint)
+        if args.http is None:
+            items, scores = srv.recommend([args.session], k=args.k)
+            pairs = ", ".join(f"{t}:{v:.3f}"
+                              for t, v in zip(items[0], scores[0]))
+            print(f"{' '.join(args.session)} -> {pairs}")
+            return
+        httpd = make_http_server(srv, args.host, args.http)
+        print(f"serving sessions for {srv.meta['model']}/"
+              f"{srv.meta['dataset']} on http://{args.host}:{args.http}")
+        try:
+            httpd.serve_forever()
+        finally:
+            httpd.server_close()
         return
     srv = RecServer(args.artifact, device=resolve_device(params))
     if args.cmd == "query":

@@ -94,9 +94,10 @@ def test_get_model_ported_and_pending():
     assert t_get_model("lightgcn").__name__ == "LightGCN"
     assert t_get_model("BPR").__name__ == "BPR"
     for name in ("NGCF", "SGL", "NCL", "HMLET", "LightGCL", "DirectAU",
-                 "NeuMF", "SSL4REC"):
+                 "NeuMF", "SSL4REC", "SRGNN", "NISER", "TAGNN", "GCSAN",
+                 "SGNNHN", "GRU4Rec", "NARM", "SASRec"):
         assert t_get_model(name).__name__ == name
-    for name in ("SRGNN", "DiffNet"):
+    for name in ("GCEGNN", "LESSR", "DiffNet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_get_model(name)
 

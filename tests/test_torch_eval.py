@@ -172,9 +172,10 @@ def test_sequential_and_mesh_evaluation_raise():
     with pytest.raises(NotImplementedError, match="item 9"):
         TEvaluator(c, m, mesh=object())
 
-    class _Seq:
-        from recbole_gnn_tpu_torch.utils.enums import ModelType
-        model_type = ModelType.SEQUENTIAL
-
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TEvaluator(c, _Seq())
+    # sequential evaluation is ported; over a mesh it raises as well
+    sc = TConfig(config_dict=_cfg(model="SRGNN"))
+    (_, str_), _, _ = t_data_preparation(sc, t_create_dataset(sc))
+    seq = t_get_model("SRGNN")(sc, str_)
+    assert TEvaluator(sc, seq).is_sequential
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TEvaluator(sc, seq, mesh=object())

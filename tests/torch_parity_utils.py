@@ -1,11 +1,15 @@
-"""Shared helpers of the general-model parity tests
-(``test_torch_general_*.py``): both packages' models from one config,
-JAX params carried into the port, and the loss / parts / gradients
-comparison at the tolerances those tests state (loss and parts rtol
-1e-5 / atol 1e-6, gradients rtol 1e-4 / atol 1e-6)."""
+"""Shared helpers of the model parity tests (``test_torch_general_*.py``
+and ``test_torch_session_*.py``): both packages' models from one
+config, JAX params carried into the port, the JAX dropout draws, and
+the loss / parts / gradients comparison at the tolerances those tests
+state (loss and parts rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 /
+atol 1e-6), and the two-epoch gate from one JAX checkpoint."""
 
 import importlib
 import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +49,15 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 def cfg(model, graph="dense", **over):
     cd = dict(model=model, embedding_size=EMB, n_layers=N_LAYERS, seed=2020,
               use_gpu=False, **GRAPHS[graph])
+    cd.update(over)
+    return base_config_dict(**cd)
+
+
+def seq_cfg(model, **over):
+    """A session model's config on the fixture (MAX_ITEM_LIST_LENGTH 20,
+    the sequential base's leave-one-out split) at narrow widths."""
+    cd = dict(model=model, embedding_size=EMB, hidden_size=EMB,
+              inner_size=2 * EMB, seed=2020, use_gpu=False)
     cd.update(over)
     return base_config_dict(**cd)
 
@@ -140,12 +153,77 @@ def check_loss_and_grads(jm, tm, jp, batch, key, j_extras, t_extras,
 
 def jax_bernoulli_keeps(key, shapes, p):
     """Keep masks as a JAX forward draws them: per shape,
-    rng, k = split(rng); bernoulli(k, 1 − p, shape)."""
+    rng, k = split(rng); bernoulli(k, 1 − p, shape).  ``p`` is one rate
+    or one per shape."""
+    ps = list(p) if isinstance(p, (list, tuple)) else [p] * len(shapes)
     out, rng = [], key
-    for shape in shapes:
+    for shape, rate in zip(shapes, ps):
         rng, k = jax.random.split(rng)
-        out.append(t(jax.random.bernoulli(k, 1.0 - p, shape)))
+        out.append(t(jax.random.bernoulli(k, 1.0 - rate, shape)))
     return out
+
+
+def session_keeps(name, jm, batch, key):
+    """The dropout keep masks a JAX session model's training forward
+    draws under ``key``, in its order (the port's ``keeps=``); None for
+    the models without dropout.  ``batch`` may be numpy or torch."""
+    B, L = batch["item_seq"].shape
+
+    def encoder(h, heads, n_layers, p_h, p_a):
+        shapes, ps = [], []
+        for _ in range(n_layers):
+            shapes += [(B, heads, L, L), (B, L, h), (B, L, h)]
+            ps += [p_a, p_h, p_h]
+        return shapes, ps
+
+    if name == "NISER":
+        return [t(jax.random.bernoulli(key, 1.0 - jm.item_dropout,
+                                       (B, L, jm.embedding_size)))]
+    if name == "GRU4Rec":
+        return jax_bernoulli_keeps(key, [(B, L, jm.embedding_size)],
+                                   jm.dropout_prob)
+    if name == "NARM":
+        return jax_bernoulli_keeps(
+            key, [(B, L, jm.embedding_size), (B, 2 * jm.hidden_size)],
+            [jm.emb_dropout, jm.ct_dropout])
+    if name in ("GCSAN", "SASRec"):
+        shapes, ps = encoder(jm.hidden_size, jm.n_heads, jm.n_layers,
+                             jm.hidden_dropout_prob, jm.attn_dropout_prob)
+        if name == "SASRec":
+            shapes = [(B, L, jm.hidden_size)] + shapes
+            ps = [jm.hidden_dropout_prob] + ps
+        return jax_bernoulli_keeps(key, shapes, ps)
+    return None
+
+
+def session_cli(model, tmp_path, *extra):
+    """``python -m recbole_gnn_tpu_torch.run`` of a session model on the
+    fixture for one epoch at narrow widths (the session CLI tests)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.run(
+        [sys.executable, "-m", "recbole_gnn_tpu_torch.run", "-m", model,
+         "-d", "test",
+         f"--data_path={os.path.join(root, 'tests', 'test_data')}",
+         "--epochs=1", "--embedding_size=16", "--hidden_size=16",
+         "--inner_size=32", "--MAX_ITEM_LIST_LENGTH=20",
+         f"--checkpoint_dir={tmp_path}", *extra],
+        cwd=root, capture_output=True, text=True, timeout=300)
+
+
+def check_session_cli(model, tmp_path, *extra):
+    """One CLI epoch on the CPU: exit 0, a finite loss and validation,
+    the test result logged, a checkpoint written."""
+    log = tmp_path / "log.jsonl"
+    r = session_cli(model, tmp_path, "--use_gpu=False",
+                    f"--metrics_log_path={log}", *extra)
+    assert r.returncode == 0, r.stderr[-3000:]
+    events = [json.loads(line) for line in open(log)]
+    losses = [e["loss"] for e in events if e["event"] == "train_epoch"]
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    valid = [e for e in events if e["event"] == "valid"]
+    assert valid and np.isfinite(valid[0]["recall@10"])
+    assert "test result" in r.stdout + r.stderr
+    assert (tmp_path / f"{model}-test.ckpt").is_file()
 
 
 def _losses(path):
@@ -177,18 +255,20 @@ def resumed_runs(tmp, cd, inject):
     return runs
 
 
-def check_gate(runs):
-    """The ROADMAP gate: the same per-epoch losses (rtol 1e-4) and test
-    metrics (abs 1e-3) from the two packages' resumed runs."""
+def check_gate(runs, loss_rtol=1e-4, metric_atol=1e-3):
+    """The ROADMAP gate: the same per-epoch losses (``loss_rtol``) and
+    test metrics (``metric_atol``) from the two packages' resumed
+    runs."""
     (_, jr, jl, _, _), (_, tr, tl, _, _) = runs["jax"], runs["torch"]
     assert len(jl) == len(tl) == 2              # epochs 1 and 2
-    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    np.testing.assert_allclose(tl, jl, rtol=loss_rtol)
     assert jr.keys() == tr.keys() and "recall@10" in tr
     for k in jr:
-        assert abs(tr[k] - jr[k]) <= 1e-3, (k, tr[k], jr[k])
+        assert abs(tr[k] - jr[k]) <= metric_atol, (k, tr[k], jr[k])
 
 
 __all__ = ["EMB", "N_LAYERS", "GRAPHS", "LOSS_TOL", "GRAD_TOL", "cfg",
+           "seq_cfg", "session_keeps", "session_cli", "check_session_cli",
            "jax_globals", "both", "port_params", "t", "padded_batch",
            "assert_tree_close", "check_loss_and_grads",
            "jax_bernoulli_keeps", "to_numpy_tree", "resumed_runs",
