@@ -7,7 +7,8 @@ numpy loop; both keep the same rows), first-appearance token remap with
 [PAD]=0, ratio / leave-one-out splits, and the normalised user-item
 graph with its dense/sparse dispatch.  All host-side numpy; only the
 finished graph is moved to a device.  The sequential datasets live in
-``data/session.py`` and are exported here, as the registry names them.
+``data/session.py`` and the social one in ``data/social.py``; both are
+exported here, as the registry names them.
 """
 
 from __future__ import annotations
@@ -202,6 +203,24 @@ class Dataset:
     def _table(self, name: str) -> dict[str, np.ndarray]:
         return self.inter if name == "inter" else getattr(self, name)
 
+    def feat_matrix(self, table: str, field: str) -> np.ndarray:
+        """Dense per-id feature array aligned to the remapped id space:
+        row i = feature of user/item id i (zeros where absent)."""
+        feats = getattr(self, table)
+        key_field = self.uid_field if table == "user_feat" else self.iid_field
+        n = self.n_users if table == "user_feat" else self.n_items
+        ids = np.asarray(feats[key_field], dtype=np.int64)
+        vals = feats[field]
+        if vals.dtype == object:          # *_seq columns → 2D float
+            width = max(len(v) for v in vals)
+            dense = np.zeros((n, width), dtype=np.float32)
+            for i, v in zip(ids, vals):
+                dense[i, :len(v)] = v
+        else:
+            dense = np.zeros((n,) + vals.shape[1:], dtype=vals.dtype)
+            dense[ids] = vals
+        return dense
+
     def _remap_group(self, group: list[tuple[str, str]]):
         cols = [np.asarray(self._table(t)[f], dtype=object) for t, f in group]
         lens = np.cumsum([len(c) for c in cols])[:-1]
@@ -226,6 +245,12 @@ class Dataset:
     @property
     def inter_num(self) -> int:
         return len(self.inter[self.uid_field])
+
+    def num(self, field: str) -> int:
+        """Vocabulary size of a token field (PAD included)."""
+        if field in self.field2id_token:
+            return len(self.field2id_token[field])
+        raise KeyError(field)
 
     def copy(self, new_inter: dict[str, np.ndarray]) -> "Dataset":
         other = _copy.copy(self)
@@ -402,13 +427,23 @@ class GeneralGraphDataset(Dataset):
                                "pallas_spmm_precision", "f32x2")),
                            with_ell=impl == "ell")
 
+    def inter_coo(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Raw (users, items, ones) COO of the rectangular interaction
+        matrix, deduplicated."""
+        users, items = self.user_item_arrays()
+        key = users * self.n_items + items
+        _, first = np.unique(key, return_index=True)
+        return (users[first], items[first],
+                np.ones(len(first), dtype=np.float32))
+
 
 # the sequential datasets live in data/session.py; exported here, where
 # the registry looks dataset classes up
 from recbole_gnn_tpu_torch.data.session import (  # noqa: E402
     GCEGNNDataset, LESSRDataset, MultiBehaviorDataset, SequentialDataset,
     SessionGraphDataset)
+from recbole_gnn_tpu_torch.data.social import SocialDataset  # noqa: E402
 
 __all__ = ["Dataset", "GeneralGraphDataset", "SequentialDataset",
            "SessionGraphDataset", "LESSRDataset", "GCEGNNDataset",
-           "MultiBehaviorDataset", "parse_interval"]
+           "MultiBehaviorDataset", "SocialDataset", "parse_interval"]

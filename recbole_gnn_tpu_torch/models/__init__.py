@@ -1,10 +1,7 @@
 """Model registry — name → (module, class, type, dataset class).
 
-Port of ``recbole_gnn_tpu/models/__init__.py``.  The table lists every
-model of the JAX package, because ``Config`` needs ``model_info`` for
-each of them; ``get_model`` returns only the models ported so far and
-names the ROADMAP item that ports each of the others (GCEGNN, LESSR and
-the social family).
+Port of ``recbole_gnn_tpu/models/__init__.py``: every model of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -22,23 +19,18 @@ class ModelInfo:
     class_name: str
     model_type: ModelType
     dataset_class: str   # name in recbole_gnn_tpu_torch.data.dataset
-    # None once ported; else the ROADMAP item that ports it
-    pending: str | None = None
 
 
 _G = ModelType.GENERAL
 _S = ModelType.SEQUENTIAL
 _SO = ModelType.SOCIAL
 
-_SESSION = "ROADMAP §1 Slice C item 6 (GCEGNN, LESSR)"
-_SOCIAL = "ROADMAP §1 Slice D item 7 (social models)"
-
 _REGISTRY: dict[str, ModelInfo] = {}
 
 
-def _reg(name, module, class_name, mtype, dataset_class, pending=None):
+def _reg(name, module, class_name, mtype, dataset_class):
     _REGISTRY[name.lower()] = ModelInfo(name, module, class_name, mtype,
-                                        dataset_class, pending)
+                                        dataset_class)
 
 
 # -- general graph recommenders ----------------------------------------
@@ -59,13 +51,13 @@ _reg("GCSAN", "sequential.gcsan", "GCSAN", _S, "SessionGraphDataset")
 _reg("NISER", "sequential.niser", "NISER", _S, "SessionGraphDataset")
 _reg("TAGNN", "sequential.tagnn", "TAGNN", _S, "SessionGraphDataset")
 _reg("SGNNHN", "sequential.sgnnhn", "SGNNHN", _S, "SessionGraphDataset")
-_reg("GCEGNN", "sequential.gcegnn", "GCEGNN", _S, "GCEGNNDataset", _SESSION)
-_reg("LESSR", "sequential.lessr", "LESSR", _S, "LESSRDataset", _SESSION)
+_reg("GCEGNN", "sequential.gcegnn", "GCEGNN", _S, "GCEGNNDataset")
+_reg("LESSR", "sequential.lessr", "LESSR", _S, "LESSRDataset")
 
 # -- social recommenders -----------------------------------------------
-_reg("DiffNet", "social.diffnet", "DiffNet", _SO, "SocialDataset", _SOCIAL)
-_reg("MHCN", "social.mhcn", "MHCN", _SO, "SocialDataset", _SOCIAL)
-_reg("SEPT", "social.sept", "SEPT", _SO, "SocialDataset", _SOCIAL)
+_reg("DiffNet", "social.diffnet", "DiffNet", _SO, "SocialDataset")
+_reg("MHCN", "social.mhcn", "MHCN", _SO, "SocialDataset")
+_reg("SEPT", "social.sept", "SEPT", _SO, "SocialDataset")
 
 # -- RecBole fallback baselines -----------------------------------------
 _reg("BPR", "general.bpr", "BPR", _G, "GeneralGraphDataset")
@@ -86,10 +78,6 @@ def model_info(name: str) -> ModelInfo:
 
 def get_model(name: str):
     info = model_info(name)
-    if info.pending:
-        raise NotImplementedError(
-            f"{info.name} is not ported to recbole_gnn_tpu_torch yet: "
-            f"{info.pending}")
     mod = importlib.import_module(
         f"recbole_gnn_tpu_torch.models.{info.module}")
     return getattr(mod, info.class_name)
@@ -97,13 +85,7 @@ def get_model(name: str):
 
 def get_dataset_class(name: str):
     from recbole_gnn_tpu_torch.data import dataset as dataset_mod
-    info = model_info(name)
-    cls = getattr(dataset_mod, info.dataset_class, None)
-    if cls is None:
-        raise NotImplementedError(
-            f"{info.dataset_class} (for {info.name}) is not ported to "
-            f"recbole_gnn_tpu_torch yet: {info.pending}")
-    return cls
+    return getattr(dataset_mod, model_info(name).dataset_class)
 
 
 def all_model_names() -> list[str]:

@@ -1,7 +1,8 @@
 """Abstract recommenders — the model contract.
 
 Port of ``recbole_gnn_tpu/models/base.py`` (``BaseRecommender``,
-``GeneralGraphRecommender``, ``SequentialRecommender``), keeping its
+``GeneralGraphRecommender``, ``SocialRecommender``,
+``SequentialRecommender``), keeping its
 functional contract:
 
   * a model *object* holds only static hyperparameters and ``device``;
@@ -107,6 +108,18 @@ class GeneralGraphRecommender(BaseRecommender):
                       ) -> torch.Tensor:
         u, i = self.propagate(params, consts, extras)
         return (u[users] * i[items]).sum(-1)
+
+
+class SocialRecommender(GeneralGraphRecommender):
+    """Social models (reference abstract_recommender.py:23-30 +
+    SocialDataset): each builds its own device matrices from the
+    dataset (``models/social/common.to_device_matrix``); the joint U-I
+    adjacency is added by the subclasses that need it."""
+
+    model_type = ModelType.SOCIAL
+
+    def __init__(self, config, dataset, device: torch.device | str | None = None):
+        BaseRecommender.__init__(self, config, dataset, device)
 
 
 class SequentialRecommender(BaseRecommender):

@@ -62,25 +62,37 @@ def session_dense_adj(batch) -> tuple[torch.Tensor, torch.Tensor]:
     """(A_in, A_out): (B, L, L) row-normalised dense session adjacencies.
 
     A_in[b, i, j] = 1/in_deg(i) where a deduped consecutive-pair edge
-    j→i exists; A_out is the reverse direction.  Built by a max-scatter
-    of each edge slot's validity: the padded slots are src = dst = 0,
-    the same cell as a real 0→0 self-edge, and a max keeps that 1 where
-    a plain write of the padding's 0 could land last."""
-    src, dst = batch["edge_src"], batch["edge_dst"]
-    B, E = src.shape
-    L = batch["x"].shape[1]
-    evalid = (torch.arange(E, device=src.device)[None, :]
-              < batch["n_edges"][:, None])
-    rows = torch.arange(B, device=src.device)[:, None]
-    cell = ((rows * L + dst) * L + src).reshape(-1)
-    a = torch.zeros(B * L * L, device=src.device).scatter_reduce(
-        0, cell, evalid.reshape(-1).to(torch.float32), "amax")
-    a = a.reshape(B, L, L)
+    j→i exists; A_out is the reverse direction (the edges' 0/1 mask by
+    :func:`edge_masks`)."""
+    a = edge_masks(batch["edge_src"], batch["edge_dst"], batch["n_edges"],
+                   batch["x"].shape[1])[..., 0]
 
     def row_norm(m):
         return m / m.sum(-1, keepdim=True).clamp_min(1.0)
 
     return row_norm(a), row_norm(a.transpose(1, 2))
+
+
+def edge_masks(src: torch.Tensor, dst: torch.Tensor, n_edges: torch.Tensor,
+               L: int, attr: torch.Tensor | None = None,
+               n_types: int = 1) -> torch.Tensor:
+    """(B, L, L, n_types) float masks, 1 at [b, dst, src, attr] for each
+    of a row's first ``n_edges`` edge slots (``attr`` 0 when None): the
+    max-scatter of the edges' validity as a plain fill of ones: the
+    padded slots go to one spare cell past the end instead of cell
+    (0, 0), so no write lands on a real 0→0 edge (session [a, a, b])
+    and every write to a cell writes the same value."""
+    B, E = src.shape
+    pos = torch.arange(E, device=src.device)[None, :]
+    rows = torch.arange(B, device=src.device)[:, None]
+    cell = ((rows * L + dst) * L + src) * n_types
+    if attr is not None:
+        cell = cell + attr
+    n = B * L * L * n_types
+    cell = torch.where(pos < n_edges[:, None], cell, n)
+    m = torch.zeros(n + 1, device=src.device).index_fill_(
+        0, cell.reshape(-1).long(), 1.0)
+    return m[:n].reshape(B, L, L, n_types)
 
 
 def srgnn_cell_dense(p: dict, hidden: torch.Tensor, a_in: torch.Tensor,

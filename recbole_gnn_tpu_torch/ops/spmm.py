@@ -66,7 +66,8 @@ __all__ = ["Graph", "BipartiteDenseGraph", "CooSpmmFunction",
            "EllSpmmFunction", "build_graph",
            "build_dense_bipartite", "spmm", "spmm_any", "spmm_coo",
            "spmm_dense_bipartite", "spmm_dense_bipartite_dropout",
-           "dense_dropout_masks", "xla_spmm", "SPMM_IMPLS",
+           "dense_dropout_masks", "graph_impl", "matvec_any", "xla_spmm",
+           "SPMM_IMPLS",
            "SPMM_PRECISIONS"]
 
 
@@ -225,6 +226,17 @@ def build_graph(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
         g.rev_weight = t(weight[rev_order])
         g.rev_rowptr = t(build_rowptr(rev_dst, n_src_nodes))
     return g
+
+
+def graph_impl(impl: str, with_segment_layout: bool) -> str:
+    """The impl a graph built with or without the segment layout
+    (``with_pallas``) runs, as the JAX package dispatches per graph
+    (``recbole_gnn_tpu/ops/spmm.py:375-386``): ``pallas`` runs the
+    streaming kernel only on a graph that has the segment layout, and
+    the XLA segment sum (the port's ``xla``) on one without."""
+    if impl == "pallas" and not with_segment_layout:
+        return "xla"
+    return impl
 
 
 def _check_cuda_impl(graph: Graph):
@@ -451,3 +463,12 @@ def spmm_any(graph, x: torch.Tensor) -> torch.Tensor:
     if isinstance(graph, BipartiteDenseGraph):
         return spmm_dense_bipartite(graph, x)
     return spmm(graph, x)
+
+
+def matvec_any(m, x: torch.Tensor) -> torch.Tensor:
+    """``m @ x`` over either representation of a (possibly rectangular)
+    matrix: a dense tensor (a cuBLAS matmul) or a sparse :class:`Graph`
+    (:func:`spmm`, whose dst indexes rows and src columns)."""
+    if isinstance(m, Graph):
+        return spmm(m, x)
+    return torch.matmul(m, x)

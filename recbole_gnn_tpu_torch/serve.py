@@ -36,7 +36,10 @@ import os
 import numpy as np
 import torch
 
-from recbole_gnn_tpu_torch.data.session import build_session_graphs
+from recbole_gnn_tpu_torch.data.session import (build_gcegnn_graphs,
+                                                build_lessr_graphs,
+                                                build_session_graphs,
+                                                reverse_sessions)
 from recbole_gnn_tpu_torch.models import get_model, model_info
 from recbole_gnn_tpu_torch.ops.topk import NEG_INF, masked_topk
 from recbole_gnn_tpu_torch.quick_start import (create_dataset,
@@ -240,6 +243,15 @@ def _pad_to_bucket(n: int, buckets) -> int:
     return -(-n // buckets[-1]) * buckets[-1]
 
 
+# each servable dataset class's per-request graph builder
+_GRAPH_BUILDERS = {
+    "SequentialDataset": None,
+    "SessionGraphDataset": build_session_graphs,
+    "LESSRDataset": lambda s, n, L: build_lessr_graphs(s, n, L)[0],
+    "GCEGNNDataset": lambda s, n, L: build_gcegnn_graphs(s, n, L)[0],
+}
+
+
 class SessionServer:
     """Real-time session-based recommendation from a checkpoint.
 
@@ -248,17 +260,26 @@ class SessionServer:
     :func:`resolve_device`), then serves ad-hoc sessions: item-token
     lists → padded ``(B, L)`` arrays, padded to a batch bucket of
     1 / 8 / 64 / 256 (then multiples of 256) by repeating row 0, plus
-    the SR-GNN session-graph arrays for a ``SessionGraphDataset`` model,
-    built by the training path (``data/session.build_session_graphs``,
-    the C++ builder where it is available) → ``full_scores`` → the PAD
-    column masked → exact top-k.  No history mask: the [recbole]
-    sequential full-sort convention.  Tied scores may come back in
-    another order than the JAX package's.
+    the session-graph arrays of the model's dataset class, built by the
+    training path: ``build_session_graphs`` (SR-GNN family, the C++
+    builder where it is available), ``build_lessr_graphs`` (LESSR) or
+    ``build_gcegnn_graphs`` over the reversed sessions, which also
+    become ``item_seq`` (GCE-GNN, trained on reversed sessions) →
+    ``full_scores`` → the PAD column masked → exact top-k.  No history
+    mask: the [recbole] sequential full-sort convention.  Tied scores
+    may come back in another order than the JAX package's.
 
-    Serves the ``SequentialDataset`` and ``SessionGraphDataset`` models
-    (GRU4Rec, NARM, SASRec; SRGNN, GCSAN, NISER, TAGNN, SGNNHN).  It
-    keeps no per-request state (no per-(batch, k) cache), so the
-    threading HTTP server's concurrent calls need no lock.
+    A model with ``serving_calibrate`` (LESSR's BatchNorm) freezes its
+    population statistics at startup from 1,024 training sessions
+    spread over the training set by ``np.linspace``, as the JAX
+    package does, so its scores do not depend on the batch.  LESSR's
+    mailbox width is the request's own largest in-degree: the JAX
+    package pads it to a power of 2 to bound its jit cache, and the
+    padded slots count in no node, so the scores are the same.
+
+    Serves every sequential model.  It keeps no per-request state (no
+    per-(batch, k) cache), so the threading HTTP server's concurrent
+    calls need no lock.
     """
 
     BATCH_BUCKETS = (1, 8, 64, 256)
@@ -271,12 +292,12 @@ class SessionServer:
                              "RecServer + export_artifact for general "
                              "models")
         info = model_info(config["model"])
-        if info.dataset_class not in ("SequentialDataset",
-                                      "SessionGraphDataset"):
-            raise NotImplementedError(
-                f"serving {info.name} ({info.dataset_class}) is not ported "
-                f"to recbole_gnn_tpu_torch yet: {info.pending}")
-        self._graphs = info.dataset_class == "SessionGraphDataset"
+        if info.dataset_class not in _GRAPH_BUILDERS:
+            raise ValueError(
+                f"{info.name} builds specialized per-session structures "
+                f"({info.dataset_class}); serve it via the offline "
+                "evaluator")
+        self._dataset_class = info.dataset_class
         ckpt, state = _load_checkpoint_for(config, checkpoint_path)
         # data_preparation for the split cache (save_dataloaders): a
         # restart then skips augmentation and graph construction
@@ -287,6 +308,17 @@ class SessionServer:
         self.params = params_from_numpy(state["params"], self.device)
         self.extras = params_from_numpy(state.get("extras") or {},
                                         self.device)
+        if hasattr(self.model, "serving_calibrate"):
+            m = min(1024, train_ds.inter_num)
+            rows = np.linspace(0, train_ds.inter_num - 1, m, dtype=np.int64)
+            cb = {"item_seq": train_ds.inter[train_ds.item_list_field][rows],
+                  "item_seq_len":
+                  train_ds.inter[train_ds.item_length_field][rows]}
+            for k, v in getattr(train_ds, "session_graphs", {}).items():
+                cb[k] = v[rows]
+            self.extras = self.model.serving_calibrate(
+                self.params, self.model.consts, self.extras,
+                to_device(cb, self.device))
         self.item_tokens = np.asarray(
             train_ds.field2id_token[train_ds.iid_field], dtype=str)
         self._tok2iid = {str(t): i for i, t in enumerate(self.item_tokens)}
@@ -317,9 +349,12 @@ class SessionServer:
         if b > n:
             seqs = np.concatenate([seqs, np.repeat(seqs[:1], b - n, axis=0)])
             lens = np.concatenate([lens, np.repeat(lens[:1], b - n)])
+        if self._dataset_class == "GCEGNNDataset":
+            seqs = reverse_sessions(seqs, lens)
         batch = {"item_seq": seqs, "item_seq_len": lens}
-        if self._graphs:
-            batch.update(build_session_graphs(seqs, lens, L))
+        build = _GRAPH_BUILDERS[self._dataset_class]
+        if build is not None:
+            batch.update(build(seqs, lens, L))
         return batch, n
 
     def recommend(self, sessions, k: int = 10, return_tokens: bool = True):

@@ -16,6 +16,7 @@ from recbole_gnn_tpu.models import model_info as j_model_info
 from recbole_gnn_tpu_torch.config import Config as TConfig
 from recbole_gnn_tpu_torch.config.config import parse_cli as t_parse_cli
 from recbole_gnn_tpu_torch.models import all_model_names as t_all_models
+from recbole_gnn_tpu_torch.models import get_dataset_class as t_get_dataset_class
 from recbole_gnn_tpu_torch.models import get_model as t_get_model
 from recbole_gnn_tpu_torch.models import model_info as t_model_info
 
@@ -91,15 +92,14 @@ def test_registry_tables_equal():
 
 
 def test_get_model_ported_and_pending():
+    """Every registered model is ported: none is pending."""
     assert t_get_model("lightgcn").__name__ == "LightGCN"
-    assert t_get_model("BPR").__name__ == "BPR"
-    for name in ("NGCF", "SGL", "NCL", "HMLET", "LightGCL", "DirectAU",
-                 "NeuMF", "SSL4REC", "SRGNN", "NISER", "TAGNN", "GCSAN",
-                 "SGNNHN", "GRU4Rec", "NARM", "SASRec"):
+    names = t_all_models()
+    assert len(names) == 25
+    for name in names:
         assert t_get_model(name).__name__ == name
-    for name in ("GCEGNN", "LESSR", "DiffNet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_get_model(name)
+        assert t_get_dataset_class(name).__name__ == \
+            t_model_info(name).dataset_class
 
 
 def test_no_zero_swallowing_config_reads_in_port():

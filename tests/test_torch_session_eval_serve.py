@@ -7,8 +7,8 @@ f32 sums of the same terms in another order); ``SessionServer`` serves
 the checkpoint with the top-k of the evaluator's full sort for the same
 sessions and the JAX server's scores (rtol 1e-5 / atol 1e-6), pads
 requests to the 1 / 8 / 64 / 256 buckets, answers over HTTP, and
-refuses GCEGNN and LESSR (their ROADMAP item), non-sequential models
-and a checkpoint of another model.
+refuses non-sequential models and a checkpoint of another model
+(GCEGNN and LESSR too: they are served, ``test_torch_session_gce_lessr_serve.py``).
 """
 
 import json
@@ -121,11 +121,14 @@ def test_session_server_buckets_and_refusals(ckpts):
         srv.recommend([["no-such-item"]])
     with pytest.raises(KeyError, match="empty session"):
         srv.recommend([[]])
+    # GCEGNN and LESSR are served now: they pass the dataset-class check
+    # and stop at the checkpoint's model check
     for model in ("GCEGNN", "LESSR"):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 6 \(GCEGNN, LESSR\)"):
-            t_serve.SessionServer(TConfig(config_dict=dict(cd, model=model)),
-                                  device="cpu")
+        with pytest.raises(ValueError, match="stored for"):
+            t_serve.SessionServer(
+                TConfig(config_dict=dict(cd, model=model)),
+                checkpoint_path=f"{cd['checkpoint_dir']}/SRGNN-test.ckpt",
+                device="cpu")
     with pytest.raises(ValueError, match="sequential"):
         t_serve.SessionServer(TConfig(config_dict=dict(cd, model="LightGCN")),
                               device="cpu")

@@ -1,13 +1,15 @@
-"""Shared helpers of the model parity tests (``test_torch_general_*.py``
-and ``test_torch_session_*.py``): both packages' models from one
-config, JAX params carried into the port, the JAX dropout draws, and
-the loss / parts / gradients comparison at the tolerances those tests
-state (loss and parts rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 /
-atol 1e-6), and the two-epoch gate from one JAX checkpoint."""
+"""Shared helpers of the model parity tests (``test_torch_general_*.py``,
+``test_torch_session_*.py`` and ``test_torch_social_*.py``): both
+packages' models from one config, JAX params carried into the port,
+the JAX dropout draws, permutations and keep masks, and the loss /
+parts / gradients comparison at the tolerances those tests state (loss
+and parts rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 / atol 1e-6), and
+the two-epoch gate from one JAX checkpoint."""
 
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -17,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import base_config_dict
+from conftest import TEST_DATA, base_config_dict
 from recbole_gnn_tpu.config import Config as JConfig
 from recbole_gnn_tpu.models import get_model as j_get_model
 from recbole_gnn_tpu.quick_start import create_dataset as j_create_dataset
@@ -121,20 +123,22 @@ def assert_tree_close(got, want, tol=LOSS_TOL, what=""):
                                    err_msg=f"{what}[{i}]", **tol)
 
 
-def check_loss_and_grads(jm, tm, jp, batch, key, j_extras, t_extras,
-                         mode=0, **t_kw):
-    """From one JAX param tree, the JAX loss under ``key`` against the
-    port's with the JAX draws in ``t_kw``: loss, parts, gradients of
-    every leaf (a leaf autograd leaves unused counts as 0, as the
-    trainer takes it)."""
-    tp = port_params(jp)
-
+def jax_loss_and_grads(jm, jp, batch, key, j_extras, mode=0):
+    """The JAX model's (loss, parts, gradients) under ``key``."""
     def j_loss(p):
         return jm.calculate_loss(
             p, jm.consts, j_extras,
             {k: jnp.asarray(v) for k, v in batch.items()}, key, mode=mode)
 
-    (jl, jaux), jg = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(jp)
+    return jax.jit(jax.value_and_grad(j_loss, has_aux=True))(jp)
+
+
+def port_matches(tm, jp, batch, t_extras, want, mode=0, **t_kw):
+    """The port's loss, parts and gradients of every leaf (a leaf
+    autograd leaves unused counts as 0, as the trainer takes it) from
+    the params ``jp`` against ``want`` = ``jax_loss_and_grads(...)``."""
+    (jl, jaux), jg = want
+    tp = port_params(jp)
     tl, taux = tm.calculate_loss(tp, tm.consts, t_extras,
                                  to_device(batch, "cpu"), None, mode=mode,
                                  **t_kw)
@@ -149,6 +153,16 @@ def check_loss_and_grads(jm, tm, jp, batch, key, j_extras, t_extras,
                                    err_msg=k, **LOSS_TOL)
     assert_tree_close(tg, jg, GRAD_TOL, "grad")
     return tp, tg, jg
+
+
+def check_loss_and_grads(jm, tm, jp, batch, key, j_extras, t_extras,
+                         mode=0, **t_kw):
+    """From one JAX param tree, the JAX loss under ``key`` against the
+    port's with the JAX draws in ``t_kw``: loss, parts, gradients of
+    every leaf."""
+    return port_matches(tm, jp, batch, t_extras,
+                        jax_loss_and_grads(jm, jp, batch, key, j_extras,
+                                           mode), mode, **t_kw)
 
 
 def jax_bernoulli_keeps(key, shapes, p):
@@ -186,6 +200,14 @@ def session_keeps(name, jm, batch, key):
         return jax_bernoulli_keeps(
             key, [(B, L, jm.embedding_size), (B, 2 * jm.hidden_size)],
             [jm.emb_dropout, jm.ct_dropout])
+    if name == "LESSR":
+        d, n = jm.embedding_size, jm.num_layers
+        shapes = [(B, L, d * (i + 1)) for i in range(n)]
+        shapes += [(B, L, d * (n + 1)), (B, d * (n + 1) + d)]
+        return (jax_bernoulli_keeps(key, shapes, jm.feat_drop)
+                if jm.feat_drop > 0 else None)
+    if name == "GCEGNN":
+        return gcegnn_keeps(jm, B, L, key)
     if name in ("GCSAN", "SASRec"):
         shapes, ps = encoder(jm.hidden_size, jm.n_heads, jm.n_layers,
                              jm.hidden_dropout_prob, jm.attn_dropout_prob)
@@ -194,6 +216,95 @@ def session_keeps(name, jm, batch, key):
             ps = [jm.hidden_dropout_prob] + ps
         return jax_bernoulli_keeps(key, shapes, ps)
     return None
+
+
+def inject_session_keeps(tm, jm, seed):
+    """Feed each port step the keep masks of the JAX step it mirrors."""
+    k_train = jax.random.split(jax.random.PRNGKey(seed), 3)[2]
+    at = {"epoch": None, "step": 0}
+    real_start, real_loss = tm.epoch_start, tm.calculate_loss
+
+    def epoch_start(epoch, params, consts, extras, rng):
+        at.update(epoch=epoch, step=0)
+        return real_start(epoch, params, consts, extras, rng)
+
+    def calculate_loss(params, consts, extras, batch, rng, mode=0):
+        key = jax.random.fold_in(jax.random.fold_in(k_train, at["epoch"]),
+                                 at["step"])
+        at["step"] += 1
+        return real_loss(params, consts, extras, batch, rng, mode=mode,
+                         keeps=session_keeps(type(tm).__name__, jm, batch,
+                                             key))
+
+    tm.epoch_start = epoch_start
+    tm.calculate_loss = calculate_loss
+
+
+def gcegnn_keeps(jm, B, L, key):
+    """GCE-GNN's keep masks under ``key``, in the port's order: the
+    ``dropout_gcn`` masks of the global aggregation (JAX key k1, split
+    per use), then ``dropout_local``'s (k2) and ``dropout_global``'s
+    (k3) (B, L, D) masks."""
+    D, S = jm.embedding_size, jm.sample_num
+    _, k1, k2, k3 = jax.random.split(key, 4)
+    out = []
+    if jm.dropout_gcn > 0:
+        rng = k1
+        for n_hop in range(jm.hop):
+            for hop_i in range(jm.hop - n_hop):
+                rng, k = jax.random.split(rng)
+                out.append(t(jax.random.bernoulli(
+                    k, 1.0 - jm.dropout_gcn, (B, L * S ** hop_i, 2 * D))))
+    for k, p in ((k2, jm.dropout_local), (k3, jm.dropout_global)):
+        if p > 0:
+            out.append(t(jax.random.bernoulli(k, 1.0 - p, (B, L, D))))
+    return out
+
+
+def mhcn_perms(jm, key):
+    """MHCN's MIM permutations under ``key``, per channel (row, second
+    row, column), as the JAX ``calculate_loss`` draws them."""
+    out = []
+    for k in jax.random.split(key, 3):
+        k1, k2, k3 = jax.random.split(k, 3)
+        out.append((t(jax.random.permutation(k1, jm.n_users)),
+                    t(jax.random.permutation(k2, jm.n_users)),
+                    t(jax.random.permutation(k3, jm.embedding_size))))
+    return out
+
+
+def sept_keeps(jm, key):
+    """SEPT's subgraph keep masks (interactions, net) as the JAX
+    ``_build_sub_weight(key)`` draws them."""
+    k1, k2 = jax.random.split(key)
+    return (t(jax.random.uniform(k1, (jm._n_inter,)) >= jm.drop_ratio),
+            t(jax.random.uniform(k2, (jm._n_net,)) >= jm.drop_ratio))
+
+
+def review_data(tmp_path, dim=8):
+    """The fixture plus .user/.item files with float_seq review columns
+    (as the JAX package's DiffNet review test writes them); a few users
+    and items have none, so their rows stay zero."""
+    d = tmp_path / "test"
+    d.mkdir()
+    for suffix in ("inter", "net"):
+        shutil.copy(os.path.join(TEST_DATA, "test", f"test.{suffix}"),
+                    d / f"test.{suffix}")
+    rng = np.random.default_rng(0)
+    lines = open(d / "test.inter").read().splitlines()[1:]
+    users = sorted({line.split("\t")[0] for line in lines})[3:]
+    items = sorted({line.split("\t")[1] for line in lines})[5:]
+    for name, ids in (("user", users), ("item", items)):
+        with open(d / f"test.{name}", "w") as f:
+            f.write(f"{name}_id:token\t{name}_review_emb:float_seq\n")
+            for i in ids:
+                f.write(i + "\t" + " ".join(
+                    f"{v:.4f}" for v in rng.normal(size=dim)) + "\n")
+    return {"data_path": str(tmp_path), "load_col": {
+        "inter": ["user_id", "item_id", "rating", "timestamp"],
+        "net": ["source_id", "target_id"],
+        "user": ["user_id", "user_review_emb"],
+        "item": ["item_id", "item_review_emb"]}}
 
 
 def session_cli(model, tmp_path, *extra):
@@ -271,5 +382,7 @@ __all__ = ["EMB", "N_LAYERS", "GRAPHS", "LOSS_TOL", "GRAD_TOL", "cfg",
            "seq_cfg", "session_keeps", "session_cli", "check_session_cli",
            "jax_globals", "both", "port_params", "t", "padded_batch",
            "assert_tree_close", "check_loss_and_grads",
+           "jax_loss_and_grads", "port_matches",
            "jax_bernoulli_keeps", "to_numpy_tree", "resumed_runs",
-           "check_gate"]
+           "check_gate", "inject_session_keeps", "gcegnn_keeps",
+           "mhcn_perms", "sept_keeps", "review_data"]
