@@ -414,9 +414,20 @@ class GeneralGraphDataset(Dataset):
                 device=device, dtype=dtype)
         if (self.config["graph_edge_sharding"] and not force_sparse
                 and self.config["mesh_shape"]):
-            raise NotImplementedError(
-                "graph_edge_sharding (edge-sharded ELL over a mesh) is not "
-                "ported yet (ROADMAP K7, Slice E parallelism)")
+            # graph memory scaling: this rank's dst block of the edges as
+            # an ELL layout pair, over the mesh axis
+            # graph_edge_sharding_axis (parallel/sharded_spmm.py); not for
+            # models that re-weight edges per step (force_sparse=True)
+            from recbole_gnn_tpu_torch.parallel.mesh import (
+                axis_group, axis_size, make_mesh)
+            from recbole_gnn_tpu_torch.parallel.sharded_spmm import (
+                build_sharded_ell)
+            axis = str(self.config.or_default("graph_edge_sharding_axis",
+                                              "dp"))
+            mesh = make_mesh(self.config["mesh_shape"])
+            return build_sharded_ell(src, dst, w, n, axis_size(mesh, axis),
+                                     group=axis_group(mesh, axis),
+                                     axis=axis, device=device)
         with_pallas = self.config["use_pallas_spmm"] is not False
         impl = str(self.config.get("sparse_spmm_impl", "ell"))
         # the ELL layouts only for an ell graph (the JAX package builds

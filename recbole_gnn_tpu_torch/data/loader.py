@@ -39,8 +39,12 @@ def _pad_batch(arrays: Batch, batch_size: int) -> Batch:
     w[:n] = 1.0
     for k, v in arrays.items():
         if n < batch_size:
-            pad = np.repeat(v[:1], batch_size - n, axis=0)
-            v = np.concatenate([v, pad], axis=0)
+            # one pass over the padded array (a large eval_batch_size
+            # pads millions of rows)
+            full = np.empty((batch_size,) + v.shape[1:], dtype=v.dtype)
+            full[:n] = v
+            full[n:] = v[:1]
+            v = full
         out[k] = v
     out["weight"] = w
     return out
@@ -74,7 +78,7 @@ class TrainLoader:
     def __init__(self, dataset, config, seed_offset: int = 0):
         self.users, self.items = dataset.user_item_arrays()
         self.n_users, self.n_items = dataset.n_users, dataset.n_items
-        self.batch_size = int(config.get("train_batch_size", 2048))
+        self.batch_size = int(config.or_default("train_batch_size", 2048))
         neg_args = config["train_neg_sample_args"]
         self.neg_num = int((neg_args or {}).get("sample_num", 1)) if neg_args else 0
         self.sampler = UniformNegativeSampler(
@@ -109,7 +113,8 @@ class FullSortEvalLoader:
 
     def __init__(self, eval_dataset, history_datasets, config):
         self.n_items = eval_dataset.n_items
-        self.batch_size = max(1, int(config.get("eval_batch_size", 4096)))
+        self.batch_size = max(1, int(config.or_default("eval_batch_size",
+                                                          4096)))
         n_users = eval_dataset.n_users
         e_users, e_items = eval_dataset.user_item_arrays()
         self.eval_users = np.unique(e_users).astype(np.int64)
@@ -151,7 +156,8 @@ class NegSampleEvalLoader:
                  sample_num: int, distribution: str = "uni"):
         self.n_items = eval_dataset.n_items
         self.sample_num = sample_num
-        self.batch_size = max(1, int(config.get("eval_batch_size", 4096)))
+        self.batch_size = max(1, int(config.or_default("eval_batch_size",
+                                                          4096)))
         self.seed = int(config.get("seed", 2020))
         n_users = eval_dataset.n_users
         e_users, e_items = eval_dataset.user_item_arrays()

@@ -13,19 +13,36 @@ sort sets the PAD column to ``NEG_INF`` and masks no history (the
 [recbole] sequential convention), uniN/popN rank the target among its
 sampled candidates.
 
-Metric contributions are weighted sums (padded eval rows have weight 0)
-kept on the device and read once at the end.  ``eval_scan`` (a TPU
-dispatch-latency knob) runs the same per-batch loop with the same
-results.  Mesh-sharded scoring is not ported.
+Metric contributions are weighted sums kept on the device and read
+once at the end.  A general model's full-sort batch is scored without
+its weight-0 padding rows and in user chunks of at most
+``SCORE_BYTES_BUDGET`` bytes of scores, so ``eval_batch_size`` (users
+per batch, as in the JAX package) bounds no device allocation.
+``eval_scan`` (a TPU dispatch-latency knob) runs the same per-batch
+loop with the same results.
+
+With a mesh (``Evaluator(mesh=)``, the trainer's) whose ``tp`` axis has
+more than one rank, a factorized model's full sort runs item-sharded
+(``parallel/topk.distributed_full_sort_topk``): every rank of the
+``tp`` line scores the batch against its block of the catalog (padded
+with PAD rows to the shard multiple), and the (B, k) candidates are
+merged; every rank gets the same metrics.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from recbole_gnn_tpu_torch.eval.metrics import topk_metrics
 from recbole_gnn_tpu_torch.ops.topk import NEG_INF, masked_topk
+from recbole_gnn_tpu_torch.parallel.mesh import axis_group, axis_size
+from recbole_gnn_tpu_torch.parallel.topk import (distributed_full_sort_topk,
+                                                 item_shard)
 from recbole_gnn_tpu_torch.utils.enums import ModelType
+
+# bytes of (users, n_items) f32 scores one full-sort chunk may make
+SCORE_BYTES_BUDGET = 1 << 30
 
 
 def to_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
@@ -42,10 +59,6 @@ def to_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
 class Evaluator:
 
     def __init__(self, config, model, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded evaluation is not ported to "
-                "recbole_gnn_tpu_torch yet (ROADMAP §1 Slice E item 9)")
         self.config = config
         self.model = model
         self.device = model.device
@@ -55,6 +68,7 @@ class Evaluator:
             "metrics", ["Recall", "MRR", "NDCG", "Hit", "Precision"]))
         self.n_items = model.n_items
         self.is_sequential = model.model_type == ModelType.SEQUENTIAL
+        self.mesh = mesh
 
     # -- per-batch scoring --------------------------------------------
 
@@ -75,6 +89,20 @@ class Evaluator:
             return self._metric_sums(idx, batch)
         return self._candidate_sums(
             torch.gather(scores, 1, batch["candidates"]), batch)
+
+    def _use_dist_eval(self, mode: str) -> bool:
+        return (mode == "full" and self.mesh is not None
+                and axis_size(self.mesh, "tp") > 1)
+
+    def _dist_full_sort_sums(self, u_e, item_block, batch):
+        """Item-sharded full sort of one batch: this rank's block of the
+        catalog, the history with a 0 column appended (the PAD item is
+        always excluded), the merged top-k."""
+        hist = torch.nn.functional.pad(batch["history_items"], (0, 1))
+        _, idx = distributed_full_sort_topk(
+            u_e, item_block, hist, self.max_k, axis_group(self.mesh, "tp"),
+            n_valid_items=self.n_items)
+        return self._metric_sums(idx, batch)
 
     def _full_sort_sums(self, scores, batch):
         """Mask history + PAD on a (B, n_items) score matrix, top-k."""
@@ -97,6 +125,15 @@ class Evaluator:
                 topk_items, (0, self.max_k - k))
         return self._metric_sums(topk_items, batch)
 
+    def _score_chunks(self, batch: dict) -> list[dict]:
+        """A host full-sort batch without its weight-0 padding rows, in
+        user chunks whose (users, n_items) f32 scores stay within
+        ``SCORE_BYTES_BUDGET``."""
+        keep = np.flatnonzero(batch["weight"] > 0)
+        rows = max(1, SCORE_BYTES_BUDGET // (4 * max(1, self.n_items)))
+        return [{k: v[keep[lo:lo + rows]] for k, v in batch.items()}
+                for lo in range(0, len(keep), rows)]
+
     # -- public API -----------------------------------------------------
 
     def evaluate(self, params, extras, loader, mode: str = "full") -> dict:
@@ -109,9 +146,14 @@ class Evaluator:
             elif self.model.factorized_eval:
                 user_all, item_all = self.model.propagate(
                     params, self.model.consts, extras)
+                item_block = (item_shard(item_all,
+                                         axis_group(self.mesh, "tp"))
+                              if self._use_dist_eval(mode) else None)
 
                 def batch_sums(b):
                     u_e = user_all[b["user_id"]]
+                    if item_block is not None:
+                        return self._dist_full_sort_sums(u_e, item_block, b)
                     if mode == "full":
                         return self._full_sort_sums(
                             torch.matmul(u_e, item_all.T), b)
@@ -126,10 +168,13 @@ class Evaluator:
                         return self._full_sort_sums(scores, b)
                     return self._candidate_sums(
                         torch.gather(scores, 1, b["candidates"]), b)
+            chunked = not self.is_sequential and mode == "full"
             for batch in loader:
-                sums = batch_sums(to_device(batch, self.device))
-                for k, v in sums.items():
-                    totals[k] = v if k not in totals else totals[k] + v
+                parts = (self._score_chunks(batch) if chunked else [batch])
+                for part in parts:
+                    sums = batch_sums(to_device(part, self.device))
+                    for k, v in sums.items():
+                        totals[k] = v if k not in totals else totals[k] + v
         if not totals:
             return {}
         # one device→host read for the whole pass

@@ -10,6 +10,12 @@ weight-0 rows the loaders pad the last batch with contribute nothing.
 contrastive loss over a batch's unique ids; ``info_nce`` takes its
 negatives from a whole table (SGL, NCL), through a chunked logsumexp
 when the (B, n) logits would exceed ``_NCE_CHUNK_ENTRIES`` entries.
+
+Under data parallelism (``parallel/comm.batch_reduction``) each rank
+holds a slice of the batch and every loss here is the global batch's:
+batch sums are all-reduced over the data-parallel ranks before a mean,
+a square root or a divide (BPR's Σw, EmbLoss's Σe²), and the in-batch
+losses gather the batch's rows (or ids) from every rank first.
 """
 
 from __future__ import annotations
@@ -18,6 +24,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from recbole_gnn_tpu_torch.models.init import l2_normalize as _l2n
+from recbole_gnn_tpu_torch.parallel.comm import (batch_gather,
+                                                 batch_gather_ids,
+                                                 batch_mean, batch_reducing,
+                                                 batch_sum)
 
 # (B, n) InfoNCE denominators above this many entries stream through
 # :func:`_chunked_lse` instead of materialising the logits (SGL's
@@ -26,16 +36,22 @@ from recbole_gnn_tpu_torch.models.init import l2_normalize as _l2n
 _NCE_CHUNK_ENTRIES = 1 << 28
 
 
-def _wmean(x: torch.Tensor, weight: torch.Tensor | None) -> torch.Tensor:
+def _wmean(x: torch.Tensor, weight: torch.Tensor | None,
+           over_ranks: bool = True) -> torch.Tensor:
+    """Weighted mean over the batch rows; ``over_ranks``: over the
+    global batch (this rank's rows are a slice of it)."""
+    red = batch_sum if over_ranks else (lambda t: t)
     if weight is None:
-        return x.mean()
-    return (x * weight).sum() / torch.clamp(weight.sum(), min=1.0)
+        return batch_mean(x) if over_ranks else x.mean()
+    return red((x * weight).sum()) / torch.clamp(red(weight.sum()), min=1.0)
 
 
-def _wsum(x: torch.Tensor, weight: torch.Tensor | None) -> torch.Tensor:
+def _wsum(x: torch.Tensor, weight: torch.Tensor | None,
+          over_ranks: bool = True) -> torch.Tensor:
+    red = batch_sum if over_ranks else (lambda t: t)
     if weight is None:
-        return x.sum()
-    return (x * weight).sum()
+        return red(x.sum())
+    return red((x * weight).sum())
 
 
 def bpr_loss(pos_scores: torch.Tensor, neg_scores: torch.Tensor,
@@ -69,7 +85,9 @@ def emb_loss(embeddings: list[torch.Tensor],
     inside each embedding (rows are the batch axis) and makes the batch
     size ``max(Σw, 1)``."""
     if weight is not None:
-        batch_size = torch.clamp(weight.sum(), min=1.0)
+        batch_size = torch.clamp(batch_sum(weight.sum()), min=1.0)
+    elif batch_reducing():
+        batch_size = batch_sum(embeddings[0].new_tensor(float(batch_size)))
     total = 0.0
     for e in embeddings:
         if weight is not None:
@@ -77,9 +95,10 @@ def emb_loss(embeddings: list[torch.Tensor],
         if require_pow:
             total = total + (e.abs() ** norm).sum()
         else:
-            total = total + torch.sqrt(torch.clamp((e * e).sum(), min=1e-24))
+            total = total + torch.sqrt(torch.clamp(batch_sum((e * e).sum()),
+                                                   min=1e-24))
     if require_pow:
-        total = total / norm
+        total = batch_sum(total / norm)
     return total / batch_size
 
 
@@ -93,6 +112,7 @@ def masked_unique(ids: torch.Tensor, size: int | None = None
     """(the sorted unique ids padded with 0 to ``size``, the mask
     ``u > 0``): ``jnp.unique(ids, size=size, fill_value=0)`` with id 0
     (PAD, never a batch's real id) marking the fill slots."""
+    ids = batch_gather_ids(ids)      # the global batch's ids
     size = ids.shape[0] if size is None else size
     uniq = torch.unique(ids, sorted=True)[:size]
     u = ids.new_zeros(size)
@@ -147,8 +167,12 @@ def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
              reduction: str = "sum") -> torch.Tensor:
     """InfoNCE between aligned rows of two views: the positive is
     cos(view1ᵢ, view2ᵢ), the negatives every row of ``all_view2``
-    (default view2), all L2-normalised inside; 'sum' (SGL, NCL) or
-    weighted 'mean'."""
+    (default view2: the global batch's rows), all L2-normalised inside;
+    'sum' (SGL, NCL) or weighted 'mean'."""
+    in_batch = all_view2 is None
+    if in_batch:
+        view1, view2 = batch_gather(view1), batch_gather(view2)
+        weight = None if weight is None else batch_gather(weight)
     v1 = _l2n(view1)
     v2 = _l2n(view2)
     av2 = v2 if all_view2 is None else _l2n(all_view2)
@@ -159,15 +183,17 @@ def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
         lse = torch.logsumexp(torch.matmul(v1, av2.T) / temperature, dim=-1)
     loss = lse - pos
     if reduction == "sum":
-        return _wsum(loss, weight)
-    return _wmean(loss, weight)
+        return _wsum(loss, weight, over_ranks=not in_batch)
+    return _wmean(loss, weight, over_ranks=not in_batch)
 
 
 def batch_softmax_loss(user_emb: torch.Tensor, item_emb: torch.Tensor,
                        temperature: float,
                        weight: torch.Tensor | None = None) -> torch.Tensor:
     """In-batch sampled softmax (SSL4REC's rec loss): positives on the
-    diagonal, the batch's other (unpadded) items as negatives."""
+    diagonal, the global batch's other (unpadded) items as negatives."""
+    user_emb, item_emb = batch_gather(user_emb), batch_gather(item_emb)
+    weight = None if weight is None else batch_gather(weight)
     u = _l2n(user_emb)
     i = _l2n(item_emb)
     pos = (u * i).sum(-1) / temperature
@@ -175,7 +201,7 @@ def batch_softmax_loss(user_emb: torch.Tensor, item_emb: torch.Tensor,
     if weight is not None:
         logits = logits.masked_fill(~(weight[None, :] > 0), float("-inf"))
     loss = torch.logsumexp(logits, dim=-1) - pos
-    return _wmean(loss, weight)
+    return _wmean(loss, weight, over_ranks=False)
 
 
 def alignment_loss(x: torch.Tensor, y: torch.Tensor,
@@ -190,7 +216,10 @@ def uniformity_loss(x: torch.Tensor, weight: torch.Tensor | None = None,
                     t: float = 2.0) -> torch.Tensor:
     """DirectAU uniformity: log mean exp(−t·‖xᵢ − xⱼ‖²) over the pairs
     i < j (``torch.pdist``'s pairs), the squared distances as
-    ‖xᵢ‖² + ‖xⱼ‖² − 2xᵢ·xⱼ clamped at 0, as the JAX package forms them."""
+    ‖xᵢ‖² + ‖xⱼ‖² − 2xᵢ·xⱼ clamped at 0, as the JAX package forms them;
+    the pairs of the global batch."""
+    x = batch_gather(x)
+    weight = None if weight is None else batch_gather(weight)
     sq = (x * x).sum(-1)
     d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * torch.matmul(x, x.T),
                      min=0.0)

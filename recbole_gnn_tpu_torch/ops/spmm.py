@@ -459,9 +459,15 @@ def spmm_dense_bipartite_dropout(graph: BipartiteDenseGraph, x: torch.Tensor,
 
 
 def spmm_any(graph, x: torch.Tensor) -> torch.Tensor:
-    """Dispatch over graph representations (dense bipartite | COO)."""
+    """Dispatch over graph representations (dense bipartite | COO |
+    edge-sharded ELL)."""
     if isinstance(graph, BipartiteDenseGraph):
         return spmm_dense_bipartite(graph, x)
+    # imported here: parallel/sharded_spmm builds on ops/ell_spmm
+    from recbole_gnn_tpu_torch.parallel.sharded_spmm import (
+        ShardedEll, sharded_ell_spmm)
+    if isinstance(graph, ShardedEll):
+        return sharded_ell_spmm(graph, x)
     return spmm(graph, x)
 
 

@@ -15,6 +15,7 @@ import pickle
 import time
 
 import torch
+import torch.distributed as dist
 
 from recbole_gnn_tpu_torch.config import Config
 from recbole_gnn_tpu_torch.data.loader import (
@@ -195,6 +196,10 @@ def run_recbole_gnn_tpu(model=None, dataset=None, config_file_list=None,
     seed = int(config.get("seed", 2020))
     init_seed(seed, bool(config["reproducibility"]))
     logger = init_logger(config)
+    # under torch.distributed only rank 0 logs the run; every rank logs
+    # its test result
+    say = verbose
+    verbose = verbose and (not dist.is_initialized() or dist.get_rank() == 0)
     if verbose:
         logger.info(str(config))
 
@@ -221,6 +226,7 @@ def run_recbole_gnn_tpu(model=None, dataset=None, config_file_list=None,
     test_result = trainer.evaluate(test_loader, load_best_model=saved)
     if verbose:
         logger.info(f"best valid : {best_valid_result}")
+    if say:
         logger.info(f"test result: {test_result}")
 
     return {

@@ -14,6 +14,17 @@ checkpoint and runs its forward per request batch.
 Entry points run on the card unless the caller asks for the CPU
 (``--use_gpu=False``, config ``use_gpu: False`` or ``device="cpu"``).
 
+``RecServer(mesh_shape=)`` and ``--mesh_shape`` on ``query`` / ``http``
+split the item table by rows over the ranks of the process group — over
+``tp`` when the mesh has it, else over its first axis (``[n]`` → dp) —
+padded with PAD rows to the shard multiple, and ``recommend`` runs the
+item-sharded top-k (``parallel/topk.py``).  Every rank holds its block
+and answers the same request: under ``query`` each rank runs the verb
+and rank 0 prints; under ``http`` rank 0 binds the port and broadcasts
+each request to the other ranks, which loop on it.  Launch one process
+per rank (``torchrun --nproc_per_node=N -m recbole_gnn_tpu_torch.serve
+query ... --mesh_shape=[N]``); a mesh of one needs no launcher.
+
 CLI:
   python -m recbole_gnn_tpu_torch.serve export -m LightGCN -d ml-100k \
       [--config_files ...] [--checkpoint saved/LightGCN-ml-100k.ckpt] \
@@ -31,10 +42,13 @@ CLI:
 from __future__ import annotations
 
 import json
+import math
 import os
+import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from recbole_gnn_tpu_torch.data.session import (build_gcegnn_graphs,
                                                 build_lessr_graphs,
@@ -46,6 +60,11 @@ from recbole_gnn_tpu_torch.quick_start import (create_dataset,
                                                data_preparation,
                                                resolve_device)
 from recbole_gnn_tpu_torch.eval.evaluator import to_device
+from recbole_gnn_tpu_torch.parallel.launch import init_distributed
+from recbole_gnn_tpu_torch.parallel.mesh import (axis_group, make_mesh,
+                                                 mesh_axes, mesh_broadcast)
+from recbole_gnn_tpu_torch.parallel.topk import (distributed_full_sort_topk,
+                                                 item_shard)
 from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
                                                    params_from_numpy)
 from recbole_gnn_tpu_torch.utils.enums import ModelType
@@ -164,10 +183,14 @@ class RecServer:
     The tables live on ``device`` (default per :func:`resolve_device`);
     ``recommend`` is the single public call.  It keeps no per-call
     state, so concurrent calls (the threading HTTP server) need no lock.
+    With ``mesh_shape`` this rank keeps its row block of the (padded)
+    item table and ``recommend`` is a collective: every rank of the mesh
+    calls it with the same request.
     """
 
     def __init__(self, artifact_path: str,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 mesh_shape=None):
         self.device = resolve_device(None, device)
         with np.load(artifact_path, allow_pickle=False) as z:
             self.meta = json.loads(bytes(z["meta"]).decode())
@@ -183,6 +206,16 @@ class RecServer:
             self.item_tokens = z["item_tokens"]
         self.n_users, self.n_items = self.meta["n_users"], self.meta["n_items"]
         self._token2uid = {str(t): i for i, t in enumerate(self.user_tokens)}
+        self.mesh = self._group = None
+        if mesh_shape:
+            self.mesh = make_mesh(mesh_shape)
+            # items shard over tp when the mesh has it, else over its
+            # first axis (the list shorthand [n] → dp)
+            names = self.mesh.mesh_dim_names
+            self._group = axis_group(self.mesh,
+                                     "tp" if "tp" in names else names[0])
+            self.item_table = item_shard(self.item_table,
+                                         self._group).clone()
 
     def resolve_users(self, users) -> np.ndarray:
         """External tokens (or ints matching tokens) → internal ids."""
@@ -218,6 +251,10 @@ class RecServer:
                     else np.zeros((0, k), dtype=np.int64)), empty
         with torch.inference_mode():
             ue = self.user_table[torch.from_numpy(uids).to(self.device)]
+            if self.mesh is not None:
+                vals, idx = self._sharded_topk(ue, uids, k, mask_history)
+                return self._result(vals.cpu().numpy(), idx.cpu().numpy(),
+                                    return_tokens)
             scores = ue @ self.item_table.T
             if mask_history:
                 rows, items = self._history_pairs(uids)
@@ -225,11 +262,70 @@ class RecServer:
                        torch.from_numpy(items).to(self.device)] = NEG_INF
             scores[:, 0] = NEG_INF   # PAD item
             vals, idx = masked_topk(scores, k)
-            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        return self._result(vals.cpu().numpy(), idx.cpu().numpy(),
+                            return_tokens)
+
+    def _result(self, vals: np.ndarray, idx: np.ndarray, return_tokens: bool):
         if return_tokens:
             items = [[str(self.item_tokens[j]) for j in row] for row in idx]
             return items, vals
         return idx, vals
+
+    def _sharded_topk(self, ue, uids, k, mask_history):
+        """Item-sharded top-k over this rank's block: the history rows
+        (0-padded) with a 0 column appended, so the PAD item is always
+        excluded."""
+        hist = np.zeros((len(uids), 1), np.int64)
+        if mask_history:
+            rows, items = self._history_pairs(uids)
+            counts = np.bincount(rows, minlength=len(uids))
+            hist = np.zeros((len(uids), int(counts.max(initial=0)) + 1),
+                            np.int64)
+            col = np.arange(len(rows)) - np.repeat(
+                np.cumsum(counts) - counts, counts)
+            hist[rows, col] = items
+        return distributed_full_sort_topk(
+            ue, self.item_table, torch.from_numpy(hist).to(self.device), k,
+            self._group, n_valid_items=self.n_items)
+
+
+class BroadcastRecServer:
+    """Rank 0's face of a mesh :class:`RecServer` under ``http``: each
+    request is resolved, then broadcast to every rank of the mesh (which
+    run :func:`follow_requests`) before this rank's part of it; a lock
+    keeps requests in one order across the threads of the HTTP
+    server."""
+
+    def __init__(self, server: RecServer):
+        self.server = server
+        self.meta, self.n_users, self.n_items = (
+            server.meta, server.n_users, server.n_items)
+        self._lock = threading.Lock()
+
+    def recommend(self, users, k: int = 10, mask_history: bool = True,
+                  return_tokens: bool = True):
+        self.server.resolve_users(users)     # unknown tokens fail here
+        with self._lock:
+            mesh_broadcast((list(users), k, mask_history),
+                           self.server.mesh)
+            return self.server.recommend(users, k, mask_history,
+                                         return_tokens)
+
+    def close(self):
+        """Release the other ranks from :func:`follow_requests`."""
+        with self._lock:
+            mesh_broadcast(None, self.server.mesh)
+
+
+def follow_requests(server: RecServer) -> None:
+    """A rank other than 0 under ``http``: answer each request rank 0
+    broadcasts, until it broadcasts None."""
+    while True:
+        req = mesh_broadcast(None, server.mesh)
+        if req is None:
+            return
+        users, k, mask_history = req
+        server.recommend(users, k, mask_history)
 
 
 # -- session serving ------------------------------------------------------
@@ -452,7 +548,7 @@ def main(argv=None):
     import argparse
 
     from recbole_gnn_tpu_torch.config import Config
-    from recbole_gnn_tpu_torch.config.config import parse_cli
+    from recbole_gnn_tpu_torch.config.config import _coerce, parse_cli
 
     ap = argparse.ArgumentParser(prog="recbole_gnn_tpu_torch.serve")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -472,11 +568,13 @@ def main(argv=None):
     q.add_argument("--artifact", required=True)
     q.add_argument("--users", nargs="+", required=True)
     q.add_argument("-k", type=int, default=10)
+    q.add_argument("--mesh_shape", type=_coerce, default=None)
 
     h = sub.add_parser("http", help="serve over HTTP")
     h.add_argument("--artifact", required=True)
     h.add_argument("--host", default="127.0.0.1")
     h.add_argument("--port", type=int, default=8080)
+    h.add_argument("--mesh_shape", type=_coerce, default=None)
 
     se = sub.add_parser("session", help="session-based top-k from a "
                                         "checkpoint (sequential models)")
@@ -527,20 +625,47 @@ def main(argv=None):
         finally:
             httpd.server_close()
         return
-    srv = RecServer(args.artifact, device=resolve_device(params))
+    use_gpu = params.get("use_gpu") is not False
+    _join_mesh(args.cmd, args.mesh_shape, use_gpu)
+    srv = RecServer(args.artifact, device=resolve_device(params),
+                    mesh_shape=args.mesh_shape)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     if args.cmd == "query":
         items, scores = srv.recommend(args.users, k=args.k)
-        for u, row, vs in zip(args.users, items, scores):
-            pairs = ", ".join(f"{t}:{v:.3f}" for t, v in zip(row, vs))
-            print(f"{u}: {pairs}")
+        if lead:
+            for u, row, vs in zip(args.users, items, scores):
+                pairs = ", ".join(f"{t}:{v:.3f}" for t, v in zip(row, vs))
+                print(f"{u}: {pairs}")
+    elif srv.mesh is not None and dist.is_initialized() and not lead:
+        follow_requests(srv)
     else:
-        httpd = make_http_server(srv, args.host, args.port)
+        front = (BroadcastRecServer(srv) if srv.mesh is not None
+                 and dist.is_initialized() else srv)
+        httpd = make_http_server(front, args.host, args.port)
         print(f"serving {srv.meta['model']}/{srv.meta['dataset']} on "
               f"http://{args.host}:{args.port}")
         try:
             httpd.serve_forever()
         finally:
             httpd.server_close()
+            if front is not srv:
+                front.close()
+
+
+def _join_mesh(cmd: str, mesh_shape, use_gpu: bool) -> None:
+    """A mesh of more than one rank serves from a process group: join
+    ``torchrun``'s (its environment) unless the caller has one; without
+    either, say how to launch."""
+    n = math.prod(mesh_axes(mesh_shape, 1).values()) if mesh_shape else 1
+    if n == 1 or dist.is_initialized():
+        return
+    if "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            f"--mesh_shape={mesh_shape} spans {n} ranks: launch one process "
+            f"per rank, e.g. torchrun --nproc_per_node={n} -m "
+            f"recbole_gnn_tpu_torch.serve {cmd} ... --mesh_shape="
+            f"{mesh_shape}")
+    init_distributed(use_gpu=use_gpu)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,15 @@ A fresh ``fit`` draws its params from a ``torch.Generator`` seeded with
 both packages from one checkpoint); each epoch gets a generator of its
 own, seeded from (seed, epoch), so a resumed run replays the same
 stream.
+
+With ``mesh_shape`` the trainer runs on every rank of the mesh
+(``parallel/``): the ``tp``-row-sharded tables are padded to the shard
+multiple and each rank keeps its block and its ``dp`` slice of every
+step's batch (``parallel/sharded_train.py``).  Every rank draws the same
+global batches from the same seeds and slices them, evaluates the
+whole logical state (item-sharded over ``tp``) and reaches the same
+decisions; only the mesh's rank 0 logs, writes the jsonl, tensorboard
+and checkpoints, which hold the logical (unpadded) state.
 """
 
 from __future__ import annotations
@@ -28,6 +37,11 @@ import numpy as np
 import torch
 
 from recbole_gnn_tpu_torch.eval.evaluator import Evaluator, to_device
+from recbole_gnn_tpu_torch.parallel.mesh import (in_mesh, is_main, make_mesh,
+                                                 mesh_barrier, mesh_broadcast)
+from recbole_gnn_tpu_torch.parallel.sharded_train import (
+    logical_state, make_sharded_train_step, pad_opt_state, pad_tables,
+    place_batch, place_state, shard_params_spec, table_pad_plan)
 from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
                                                    params_from_numpy,
                                                    save_checkpoint)
@@ -43,10 +57,6 @@ def _epoch_generator(seed: int, epoch: int) -> torch.Generator:
 class Trainer:
 
     def __init__(self, config, model):
-        if config["mesh_shape"]:
-            raise NotImplementedError(
-                "mesh_shape (sharded training) is not ported to "
-                "recbole_gnn_tpu_torch yet (ROADMAP §1 Slice E item 9)")
         self.config = config
         self.model = model
         self.device = model.device
@@ -58,18 +68,31 @@ class Trainer:
                                                   "MRR@10")).lower()
         self.valid_metric_bigger = config["valid_metric_bigger"] is not False
         clip = config["clip_grad_norm"]
+        self._clip = float(clip["max_norm"]) if isinstance(clip, dict) \
+            else clip
         self.optimizer = make_optimizer(
             learner=config.or_default("learner", "adam"),
             lr=float(config.or_default("learning_rate", 1e-3)),
             weight_decay=float(config.get("weight_decay", 0.0)),
-            clip_grad_norm=(float(clip["max_norm"]) if isinstance(clip, dict)
-                            else clip))
+            clip_grad_norm=self._clip)
         ckpt_dir = config.get("checkpoint_dir", "saved/")
         self.saved_model_file = os.path.join(
             ckpt_dir, f"{config['model']}-{config['dataset']}.ckpt")
         self.train_timings: list[float] = []
-        self.evaluator = Evaluator(config, model)
-        self.jsonl = JsonlSink(config["metrics_log_path"])
+        self._mesh = None
+        # the mesh's state: tp pad plan ({}: none), row-sharding spec
+        self._pad_plan: dict = {}
+        self._spec = None
+        if config["mesh_shape"]:
+            self._mesh = make_mesh(config["mesh_shape"])
+            if not in_mesh(self._mesh):
+                raise ValueError(
+                    f"mesh_shape {config['mesh_shape']} leaves this rank "
+                    "out of the mesh; launch as many ranks as the mesh has")
+        self._main = self._mesh is None or is_main(self._mesh)
+        self.evaluator = Evaluator(config, model, mesh=self._mesh)
+        self.jsonl = JsonlSink(config["metrics_log_path"] if self._main
+                               else None)
         self._profile_dir = config["profile_trace_dir"]
         self._tb = None
         # trained/restored state; set by fit() or resume_from_checkpoint()
@@ -78,7 +101,7 @@ class Trainer:
         self.opt_state = None
         self._resume_epoch = None
         self._resume_best = None
-        if config["tensorboard_dir"]:
+        if config["tensorboard_dir"] and self._main:
             # optional TB scalars, best-effort as in the JAX package
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -141,18 +164,32 @@ class Trainer:
             params = self.model.init_params(gen)
             extras = self.model.init_extras(gen)
             opt_state = self.optimizer.init(params)
+        consts = self.model.consts
+        step_fns: dict = {}
+        if self._mesh is not None:
+            # pad the non-dividing tables to the tp shard multiple (the
+            # step slices them back), then keep this rank's blocks
+            self._pad_plan = table_pad_plan(params, self._mesh)
+            params = pad_tables(params, self._pad_plan)
+            opt_state = pad_opt_state(opt_state, self._pad_plan)
+            self._spec = shard_params_spec(params, self._mesh)
+            params, opt_state = place_state(params, opt_state, self._mesh,
+                                            self._spec)
         for p in tree_leaves(params):
             p.requires_grad_(True)
-        consts = self.model.consts
+        verbose = verbose and self._main
 
         cur_step = 0
         calib_batch = None
         for epoch in range(start_epoch, self.epochs):
             rng = _epoch_generator(seed, epoch)
-            extras = self.model.epoch_start(epoch, params, consts, extras, rng)
+            extras = self.model.epoch_start(
+                epoch, self._logical(params)[0], consts, extras, rng)
             mode = int(self.model.loss_mode(epoch))
+            if mode not in step_fns:
+                step_fns[mode] = self._step_fn(mode)
             prof = None
-            if self._profile_dir and epoch == 1:
+            if self._profile_dir and epoch == 1 and self._main:
                 # skip epoch 0 (first-touch allocations) and trace one
                 prof = torch.profiler.profile(activities=self._activities())
                 prof.start()
@@ -162,9 +199,8 @@ class Trainer:
             for i, batch in enumerate(train_loader):
                 if i == 0:
                     calib_batch = batch   # host copy
-                loss = self.train_step(params, opt_state, consts, extras,
-                                       to_device(batch, self.device), rng,
-                                       mode)
+                loss = step_fns[mode](params, opt_state, consts, extras,
+                                      self._place(batch), rng)
                 # running device-scalar sum, read once at epoch end
                 loss_sum = loss if loss_sum is None else loss_sum + loss
                 w = batch.get("weight")
@@ -195,12 +231,16 @@ class Trainer:
                     f"{n_examples / max(dt, 1e-9):.0f} ex/s]")
 
             if valid_loader is not None and (epoch + 1) % self.eval_step == 0:
-                eval_extras = self._calibrated_extras(params, consts, extras,
+                lp, lo = self._logical(params, opt_state)
+                eval_extras = self._calibrated_extras(lp, consts, extras,
                                                       calib_batch)
                 t_eval = time.time()
-                result = self.evaluator.evaluate(params, eval_extras,
+                result = self.evaluator.evaluate(lp, eval_extras,
                                                  valid_loader,
                                                  mode=_eval_mode(cfg))
+                if self._mesh is not None:
+                    # one decision for every rank: the mesh rank 0's
+                    result = mesh_broadcast(result, self._mesh)
                 score = result.get(self.valid_metric,
                                    next(iter(result.values()), 0.0))
                 self.jsonl.write({"event": "valid", "epoch": epoch,
@@ -216,7 +256,7 @@ class Trainer:
                     best_score, best_result, best_epoch = score, result, epoch
                     cur_step = 0
                     if saved:
-                        self._save(params, opt_state, eval_extras, epoch,
+                        self._save(lp, lo, eval_extras, epoch,
                                    best_score, best_epoch)
                 else:
                     cur_step += 1
@@ -231,12 +271,15 @@ class Trainer:
                                 f"(best epoch {best_epoch})")
                         break
             elif valid_loader is None and saved:
-                self._save(params, opt_state,
-                           self._calibrated_extras(params, consts, extras,
+                lp, lo = self._logical(params, opt_state)
+                self._save(lp, lo,
+                           self._calibrated_extras(lp, consts, extras,
                                                    calib_batch), epoch)
             if callback is not None:
-                callback(epoch, params, extras)
+                callback(epoch, self._logical(params)[0], extras)
 
+        # the logical state, checkpoint-compatible on any topology
+        params, opt_state = self._logical(params, opt_state)
         self.params = tree_map(torch.Tensor.detach, params)
         self.extras = self._calibrated_extras(params, consts, extras,
                                               calib_batch)
@@ -246,6 +289,30 @@ class Trainer:
         if self._tb is not None:
             self._tb_hparams(best_score, best_result)
         return best_score, best_result
+
+    def _step_fn(self, mode: int):
+        """The step of loss mode ``mode``: :meth:`train_step`, or over a
+        mesh the sharded step on this rank's blocks."""
+        if self._mesh is None:
+            return lambda *a: self.train_step(*a, mode=mode)
+        return make_sharded_train_step(
+            self.model, self.optimizer, self._mesh, self._spec, mode=mode,
+            pad_plan=self._pad_plan, clip_grad_norm=self._clip)
+
+    def _place(self, batch: dict) -> dict:
+        """A host batch on the device: over a mesh, this rank's dp
+        slice of it."""
+        if self._mesh is not None:
+            batch = place_batch(batch, self._mesh)
+        return to_device(batch, self.device)
+
+    def _logical(self, params, opt_state=None):
+        """(params, opt_state) whole and unpadded: over a mesh, gathered
+        from every rank's blocks."""
+        if self._mesh is None:
+            return params, opt_state
+        return logical_state(params, opt_state, self._spec, self._mesh,
+                             self._pad_plan)
 
     def _activities(self):
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -300,6 +367,11 @@ class Trainer:
 
     def _save(self, params, opt_state, extras, epoch,
               best_score=None, best_epoch=-1):
+        """Write the (logical) state; over a mesh rank 0 writes and
+        every rank waits for it."""
+        if not self._main:
+            mesh_barrier(self._mesh)
+            return
         save_checkpoint(self.saved_model_file, {
             "params": params, "opt_state": opt_state, "extras": extras,
             "epoch": np.int64(epoch),
@@ -310,6 +382,8 @@ class Trainer:
             "config": {"model": self.config["model"],
                        "dataset": self.config["dataset"]},
         })
+        if self._mesh is not None:
+            mesh_barrier(self._mesh)
 
     def resume_from_checkpoint(self, path: str | None = None) -> int:
         """Restore params/opt/extras (written by either package); a

@@ -125,7 +125,29 @@ def test_graph_dtype_bfloat16():
 
 
 def test_edge_sharding_not_ported():
+    """Ported since: with ``graph_edge_sharding`` over a mesh the dataset
+    builds the edge-sharded graph (over ``graph_edge_sharding_axis``,
+    default dp), as the JAX package's does; a mesh of one holds the
+    unsharded graph's ELL layouts, and a mesh larger than the process
+    group (none here) raises."""
+    from recbole_gnn_tpu.parallel.sharded_spmm import ShardedEll as JSharded
+    from recbole_gnn_tpu_torch.parallel.sharded_spmm import ShardedEll
+    t, j = _pair(enable_sparse=True, graph_edge_sharding=True,
+                 mesh_shape=[1])
+    g, jg = t.get_norm_adj_graph(device="cpu"), j.get_norm_adj_graph()
+    assert isinstance(g, ShardedEll) and isinstance(jg, JSharded)
+    assert (g.n_shards, g.axis, g.n_nodes) == (jg.n_shards, jg.axis,
+                                               jg.n_nodes)
+    assert g.node_block == jg.node_block == t.n_users + t.n_items
+    ref, _ = _pair(enable_sparse=True)
+    ell = ref.get_norm_adj_graph(device="cpu").ell
+    assert g.local.n_edges == ref.get_norm_adj_graph(device="cpu").nnz
+    for f in ("idx", "w", "node_src", "vdst", "vlen"):
+        assert torch.equal(getattr(g.local.fwd, f), getattr(ell, f)), f
+    t, _ = _pair(enable_sparse=True, graph_edge_sharding=True,
+                 graph_edge_sharding_axis="tp", mesh_shape={"dp": 1, "tp": 1})
+    assert t.get_norm_adj_graph(device="cpu").axis == "tp"
     t, _ = _pair(enable_sparse=True, graph_edge_sharding=True,
                  mesh_shape=[2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         t.get_norm_adj_graph(device="cpu")

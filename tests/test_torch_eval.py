@@ -166,16 +166,28 @@ def test_padded_eval_rows_do_not_shift_averages():
 
 
 def test_sequential_and_mesh_evaluation_raise():
+    """Ported since (``parallel/``): ``Evaluator(mesh=)``.  Over a mesh
+    of one (no process group) LightGCN's full sort runs item-sharded
+    exactly when the mesh has ``tp`` > 1, as the JAX ``Evaluator``
+    decides from the mode and ``tp`` alone, and gives the single-device
+    metrics; a sequential model over a mesh evaluates as without one
+    (the JAX evaluator's sequential path reads no mesh).  Across ranks:
+    ``test_torch_parallel_ranks.py``."""
+    from recbole_gnn_tpu_torch.parallel.mesh import make_mesh
     c = TConfig(config_dict=_cfg())
-    (_, tr), _, _ = t_data_preparation(c, t_create_dataset(c))
+    (_, tr), (vl, _), _ = t_data_preparation(c, t_create_dataset(c))
     m = t_get_model("LightGCN")(c, tr)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TEvaluator(c, m, mesh=object())
+    p = m.init_params(torch.Generator().manual_seed(0))
+    want = TEvaluator(c, m).evaluate(p, {}, vl)
+    ev = TEvaluator(c, m, mesh=make_mesh({"dp": 1, "tp": 1}))
+    assert not ev._use_dist_eval("full")
+    assert ev.evaluate(p, {}, vl) == want
 
-    # sequential evaluation is ported; over a mesh it raises as well
     sc = TConfig(config_dict=_cfg(model="SRGNN"))
-    (_, str_), _, _ = t_data_preparation(sc, t_create_dataset(sc))
+    (_, str_), (svl, _), _ = t_data_preparation(sc, t_create_dataset(sc))
     seq = t_get_model("SRGNN")(sc, str_)
-    assert TEvaluator(sc, seq).is_sequential
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TEvaluator(sc, seq, mesh=object())
+    sp = seq.init_params(torch.Generator().manual_seed(0))
+    sev = TEvaluator(sc, seq, mesh=make_mesh([1]))
+    assert sev.is_sequential and sev.mesh is not None
+    assert sev.evaluate(sp, {}, svl) == TEvaluator(sc, seq).evaluate(
+        sp, {}, svl)

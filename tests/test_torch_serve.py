@@ -276,9 +276,15 @@ def test_cli_export_and_query(exported, capsys):
                   "--use_gpu=False"])
     text = capsys.readouterr().out
     assert f"wrote {out}" in text and f"{tok}: " in text
-    with pytest.raises(SystemExit):
+    # --mesh_shape: a mesh of one is accepted and answers the same; more
+    # ranks than the (absent) process group say how to launch
+    t_serve.main(["query", "--artifact", out, "--users", tok, "-k", "3",
+                  "--use_gpu=False", "--mesh_shape=[1]"])
+    assert capsys.readouterr().out.strip() == \
+        text.strip().splitlines()[-1]
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=8"):
         t_serve.main(["query", "--artifact", out, "--users", tok,
-                      "--mesh_shape=[8]"])
+                      "--use_gpu=False", "--mesh_shape=[8]"])
 
 
 def test_port_imports_neither_jax_nor_jax_package():

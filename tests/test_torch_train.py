@@ -16,6 +16,7 @@ import importlib
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 
@@ -363,11 +364,27 @@ def test_falsy_config_values_take_the_reference_default(monkeypatch, key,
     assert tt.eval_step == jt.eval_step >= 1
 
 
-@pytest.mark.parametrize("over", [{"mesh_shape": [2]}])
+@pytest.mark.parametrize("over", [{"mesh_shape": [2]},
+                                  {"mesh_shape": {"dp": 1, "tp": 1}}])
 def test_unported_trainer_options_raise(over):
+    """Ported since (``parallel/``): a mesh larger than the process
+    group (none here) raises, naming both sizes; a mesh of one trains
+    without a group, as the single-process trainer does."""
     c = TConfig(config_dict=_cfg(**over))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TTrainer(c, t_get_model("BPR")(c, t_create_dataset(c)))
+    if over["mesh_shape"] == [2]:
+        with pytest.raises(ValueError, match="needs 2 ranks.* has 1"):
+            TTrainer(c, t_get_model("BPR")(c, t_create_dataset(c)))
+        return
+    runs = []
+    for cfg in (c, TConfig(config_dict=_cfg())):
+        (tl, tr), _, _ = t_data_preparation(cfg, t_create_dataset(cfg))
+        t = TTrainer(cfg, t_get_model("BPR")(cfg, tr))
+        t.fit(tl, None, saved=False, verbose=False)
+        runs.append(t.params)
+    assert runs[0].keys() == runs[1].keys()
+    for k in runs[0]:
+        np.testing.assert_allclose(runs[0][k].numpy(), runs[1][k].numpy(),
+                                   rtol=1e-6, atol=1e-8, err_msg=k)
 
 
 # -- caches and the CLI ------------------------------------------------------
@@ -390,12 +407,12 @@ def test_dataset_and_split_caches_roundtrip(tmp_path):
         np.testing.assert_array_equal(a[1], b[1])
 
 
-def _cli(*args):
+def _cli(*args, env=None):
     return subprocess.run(
         [sys.executable, "-m", "recbole_gnn_tpu_torch.run", "-m", "LightGCN",
          "-d", "test", f"--data_path={os.path.join(ROOT, 'tests', 'test_data')}",
          "--epochs=1", "--state=ERROR", *args],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
+        cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
 
 
 def test_cli_runs_on_cpu_and_needs_use_gpu_false_without_card(tmp_path):
@@ -406,5 +423,14 @@ def test_cli_runs_on_cpu_and_needs_use_gpu_false_without_card(tmp_path):
         return
     r = _cli(f"--checkpoint_dir={tmp_path / 'gpu'}")
     assert r.returncode != 0 and "--use_gpu=False" in r.stderr
-    r = _cli("--use_gpu=False", "--distributed")
-    assert r.returncode != 0 and "ROADMAP" in r.stderr
+    # --distributed with torchrun's environment for a world of one: the
+    # flag initialises the (gloo) group and the run exits 0
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    r = _cli("--use_gpu=False", "--distributed", "--mesh_shape=[1]",
+             f"--checkpoint_dir={tmp_path / 'dist'}", env=env)
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "dist" / "LightGCN-test.ckpt").is_file()
