@@ -47,7 +47,20 @@ the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
    model's step is held against the same step on plain SpMMs, and so
    are NGCF with ``node_dropout: 0.1`` (its re-weighted graph runs D2
    and D1) and LightGCL on ``pallas`` (K1 and K1ᵀ); SGL is exported
-   and served, and NeuMF's export must refuse;
+   and served, and NeuMF's export must refuse; then SGL with
+   ``activation_dtype: bfloat16`` (the propagations on bf16 rows: K2
+   and K2ᵀ in their bf16-x mode) the same way, 50 steps on ``ell`` with
+   the same counts, its step held against its plain step (the plain
+   versions with the same bf16 rounding, at the CPU parity tests'
+   bounds: loss rtol 1e-2, each gradient leaf's max |Δ| within 3e-2 of
+   max|g| and its norm within 2e-2), its test ndcg@10 and recall@10
+   within 0.02 of the f32 run's, its peak memory beside the f32 run's,
+   exported and served; and 2 steps each on ``pallas`` in ``f32x2`` (K1
+   on the bf16 first layer, f32 after it: 9 K1 / 9 K1ᵀ per step), on
+   ``xla`` (D2 and D1 on bf16 rows: 18 / 18) and on the dense graph (no
+   kernel; its tables equal, within 1e-6, those of the f32 model from
+   the bf16-rounded embeddings: JAX's promotion of the first product to
+   f32), each held against its plain step;
 8. the session family (in a child process, ``--session``) on a
    seeded synthetic log of the reference's diginetica setting (72,014
    sessions × 29,454 items × 580,490 clicks,
@@ -122,7 +135,12 @@ isolated nodes, one row, forced edge chunks): K2 and K2ᵀ against
 their own (an input above half the L2; a non-finite row 0, which pad
 slots multiply by 0; a zero-weight real edge from a non-finite row), K1
 and K1ᵀ in ``bf16`` and
-``packed`` against ``segment_spmm_plain``, K1 and K1ᵀ also
+``packed`` against ``segment_spmm_plain``, every kernel in its
+bf16-x mode (``activation_dtype: bfloat16``; K2, K2ᵀ, K1 and K1ᵀ in
+each precision, D2 bit for bit, D1 with the weight, new, ``out=`` and
+``rowptr[0] != 0``, and the xla SpMM) against its bf16-x plain version
+on bf16 copies of the inputs, within one bf16 unit of the plain value
+(2⁻⁷·|plain|) plus 1e-4·Σ|term|, K1 and K1ᵀ also
 against their share schedule in plain torch
 (``segment_spmm_shares_plain``), D1 in all four modes and in f32 with
 the edge weight that the xla path sums inside it, also against its
@@ -200,6 +218,9 @@ DEPTH_CUTS = (
         map(str, SESSION_TRAIN_STEPS.values())) + " steps, not the epoch's "
     "89 (TAGNN's took 15.3 s, LESSR's 8.3 s); the CE's fall on the fixed "
     "batch is held as before",
+    f"SGL with activation_dtype: bfloat16 trains {GENERAL_TRAIN_STEPS} "
+    "steps on ell, as the general family; on pallas, xla and the dense "
+    "graph it takes 2 held steps each, not an epoch",
     f"the session card-vs-CPU step runs the batch's first "
     f"{SESSION_STEP_ROWS} sessions, not 4,096 (the CPU side of TAGNN's "
     "and LESSR's steps dominated the phase)")
@@ -213,6 +234,15 @@ CHUNK = 100_003            # the forced xla chunk: boundaries inside rows
 # a multiple of the unit roundoff times the sum of absolute terms (empty
 # rows must match exactly: both write 0).  D2 must match bit for bit.
 TOL_REL_ABSSUM = 1e-4
+# a bf16-x kernel against its bf16-x plain version: the same f32 sums in
+# another order, then one bf16 rounding of the output each, which may
+# land on the two sides of a rounding boundary: one bf16 unit in the last
+# place apart, at most 2⁻⁷ of the value (2⁻⁸ is half a unit, the bound
+# of one rounding against the exact sum, which a value just above a
+# power of two exceeds when the two round apart; on an H100 two K2
+# results near 2 read 1.56e-2 apart):
+# |Δ| ≤ BF16_TOL_REL·|plain| + TOL_REL_ABSSUM·Σ|term|
+BF16_TOL_REL = 2.0 ** -7
 
 # K1's and D1's share sizes checked on the small edge cases (None: each
 # module's SHARE_EDGES, through the public wrapper, the only size
@@ -232,6 +262,17 @@ STEP_ATOL_FRAC = 1e-5
 # the sum-order differences of the embeddings by up to 1 / tau = 10 in
 # the gradients (NCL's read 1.3e-5 of max|g| on an H100)
 GENERAL_STEP_ATOL_FRAC = 1e-4
+# an activation_dtype: bfloat16 step against its plain step (the same
+# bf16 roundings, but an f32 sum order that can put an output or a
+# cotangent on the other side of one): the CPU parity tests' bounds
+# (tests/test_torch_sgl_bf16.py), where the port's and JAX's bf16
+# gradients sat up to 1.75e-2·max|g| (norm 1.08e-2) apart
+BF16_STEP_LOSS_RTOL = 1e-2
+BF16_STEP_GRAD_MAX = 3e-2
+BF16_STEP_GRAD_NORM = 2e-2
+# exported bf16 tables against the plain bf16 propagation: |Δ| within
+# this share of the largest |entry| (the CPU tests' table bound)
+BF16_TABLE_REL = 1e-2
 
 
 def log(msg: str):
@@ -339,25 +380,28 @@ def device_us_by_kernel(fn, reps: int = 20, kernels: int = 2,
 
 
 def spmm_bytes(n_out: int, n_in: int, e: int, n_ptr: int,
-               d: int) -> tuple[int, int]:
-    """(bytes, flops) of one SpMM: x read once, out written once, the
-    int32 gather index, the f32 weight and the int64 row pointer read
-    once; 2·E·d flops."""
-    return (n_in * d * 4 + n_out * d * 4 + e * 4 + e * 4 + n_ptr * 8,
-            2 * e * d)
+               d: int, x_bytes: int = 4, out_bytes: int = 4
+               ) -> tuple[int, int]:
+    """(bytes, flops) of one SpMM: x read once, out written once (of
+    ``x_bytes`` and ``out_bytes`` per element: 2 for bf16), the int32
+    gather index, the f32 weight and the int64 row pointer read once;
+    2·E·d flops."""
+    return (n_in * d * x_bytes + n_out * d * out_bytes + e * 4 + e * 4
+            + n_ptr * 8, 2 * e * d)
 
 
-def ell_bytes(meta, n_in: int, d: int, padded: bool = False
-              ) -> tuple[int, int]:
+def ell_bytes(meta, n_in: int, d: int, padded: bool = False,
+              x_bytes: int = 4) -> tuple[int, int]:
     """(bytes, flops) of one K2 call over the layout ``meta``: x read
-    once, out written once, each real slot's int32 index and f32 weight
-    (the pads add nothing: what these inputs need), the per-virtual-row
-    plan (int32) and the rest lists (3 × int32), the split nodes'
-    workspace rows written and read once; 2·E·d flops over the E real
-    edges.  With ``padded``, every slot's index and weight and
-    2·E_pad·d flops, as the bound was counted before."""
+    once, out written once (``x_bytes`` per element each: 2 for bf16),
+    each real slot's int32 index and f32 weight (the pads add nothing:
+    what these inputs need), the per-virtual-row plan (int32) and the
+    rest lists (3 × int32), the split nodes' f32 workspace rows written
+    and read once; 2·E·d flops over the E real edges.  With ``padded``,
+    every slot's index and weight and 2·E_pad·d flops, as the bound was
+    counted before."""
     slots = meta.e_padded if padded else int(meta.vlen.sum())
-    return (n_in * d * 4 + meta.n_nodes * d * 4 + slots * 8
+    return (n_in * d * x_bytes + meta.n_nodes * d * x_bytes + slots * 8
             + meta.n_vrows * 4 + meta.rest_node.numel() * 12
             + 2 * meta.n_multi_vrows * d * 4,
             2 * slots * d)
@@ -723,6 +767,147 @@ def check_xla_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor,
         f"D2 max_abs_err={d2:.3e} D1 {d1_log} xla SpMM fwd+T "
         f"max_abs_err={spmm_err:.3e}")
     return {"row_gather": d2, "block_segment_sum": d1, "xla_spmm": spmm_err}
+
+
+def hold_bf16(kind: str, name: str, got: torch.Tensor, want: torch.Tensor,
+              abssum: torch.Tensor | None) -> float:
+    """A bf16-x kernel against its bf16-x plain version: the same dtype
+    and shape, finite, and bit for bit without ``abssum``, else
+    |kernel − plain| ≤ BF16_TOL_REL·|plain| + TOL_REL_ABSSUM·Σ|terms|
+    elementwise (one bf16 unit where the two round apart, plus f32 sum
+    order).  Returns max |err|."""
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{kind} on {name}: {got.dtype} "
+                             f"{tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}, or not finite")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if abssum is None:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kind} differs from its plain version on "
+                                 f"{name} (max_abs_err {max_err:.3e})")
+    elif not bool((err <= BF16_TOL_REL * w.abs()
+                   + TOL_REL_ABSSUM * abssum).all()):
+        raise AssertionError(
+            f"{kind} disagrees with its plain version on {name}: "
+            f"max_abs_err {max_err:.3e} exceeds {BF16_TOL_REL} x |plain| + "
+            f"{TOL_REL_ABSSUM} x sum|term|")
+    return max_err
+
+
+def check_bf16_kernels(name: str, pg, eg, x: torch.Tensor, g: torch.Tensor
+                       ) -> dict:
+    """Every kernel in its bf16-x mode against its bf16-x plain version
+    on bf16 copies of x and of the cotangent g: K2 over ``eg.ell`` and
+    K2ᵀ over ``eg.rev_ell`` (``ell_spmm_plain`` and the pad-free plain
+    version, reruns bit-equal), K1 and K1ᵀ in each precision over
+    ``pg``'s CSR (``segment_spmm_plain``, f32 out), D2 (bit for bit),
+    D1 with the edge weight (new, ``out=``, a row pointer that does not
+    start at 0) and the xla SpMM whole, forward and transpose.  Returns
+    the largest |err| by kernel (K1's by precision)."""
+    from recbole_gnn_tpu_torch.ops.ell_spmm import (
+        ell_spmm, ell_spmm_pad_free_plain, ell_spmm_plain, ell_spmm_transpose)
+    from recbole_gnn_tpu_torch.ops.gather import row_gather, row_gather_plain
+    from recbole_gnn_tpu_torch.ops.segment_spmm import (
+        PRECISIONS, segment_spmm, segment_spmm_plain, segment_spmm_transpose,
+        spmm_coo)
+    from recbole_gnn_tpu_torch.ops.segment_sum import (
+        block_segment_sum, block_segment_sum_plain)
+    from recbole_gnn_tpu_torch.ops.spmm import xla_spmm
+    bf = torch.bfloat16
+    xb, gb = x.to(bf).contiguous(), g.to(bf).contiguous()
+
+    def abssum(s, d, w, inp, n):
+        return spmm_coo(s, d, w.abs(), inp.float().abs(), n)
+
+    errs = {}
+    for kind, key, meta, inp, coo, n_out, run in (
+            ("K2 bf16x", "ell_spmm", eg.ell, xb,
+             (eg.src, eg.dst, eg.weight), eg.n_nodes,
+             lambda: ell_spmm(eg.ell, xb)),
+            ("K2T bf16x", "ell_spmm_transpose", eg.rev_ell, gb,
+             (eg.rev_src, eg.rev_dst, eg.rev_weight), eg.n_src_nodes,
+             lambda: ell_spmm_transpose(eg.rev_ell, gb))):
+        got = run()
+        a = abssum(*coo, inp, n_out)
+        errs[key] = max(
+            hold_bf16(kind, name, got, ell_spmm_plain(meta, inp), a),
+            hold_bf16(f"{kind} (vs pad-free)", name, got,
+                      ell_spmm_pad_free_plain(meta, inp), a))
+        if not torch.equal(got, run()):
+            raise AssertionError(f"{kind} reruns on {name} differ")
+    fwd = (pg.src, pg.dst, pg.weight, pg.rowptr, pg.n_nodes)
+    rev = (pg.rev_src, pg.rev_dst, pg.rev_weight, pg.rev_rowptr,
+           pg.n_src_nodes)
+    errs["segment_spmm"] = {}
+    errs["segment_spmm_transpose"] = 0.0
+    for p in PRECISIONS:
+        for kind, (s, d, w, rp, n_out), inp, fn in (
+                ("K1", fwd, xb, segment_spmm),
+                ("K1T", rev, gb, segment_spmm_transpose)):
+            got = fn(s, d, w, rp, inp, p)
+            e = hold_bf16(f"{kind} bf16x {p}", name, got,
+                          segment_spmm_plain(s, d, w, inp, n_out, p),
+                          abssum(s, d, w, inp, n_out))
+            if kind == "K1":
+                errs["segment_spmm"][p] = e
+            else:
+                errs["segment_spmm_transpose"] = max(
+                    errs["segment_spmm_transpose"], e)
+    raw = row_gather(xb, pg.src)
+    errs["row_gather"] = hold_bf16("D2 bf16x", name, raw,
+                                   row_gather_plain(xb, pg.src), None)
+    w, dst, rp = pg.weight, pg.dst, pg.rowptr
+    e = raw.shape[0]
+    prev = torch.randn(pg.n_nodes, x.shape[1], device=x.device).to(bf)
+    d1 = 0.0
+    for label, rowptr in (("", rp),
+                          (" rowptr[0]!=0", rp.clamp(e // 3 + 1, 2 * e // 3))):
+        a = block_segment_sum_plain(raw.float().abs(), dst, rowptr,
+                                    weight=w.abs())
+        d1 = max(d1, hold_bf16(
+            f"D1 bf16x weighted{label}", name,
+            block_segment_sum(raw, dst, rowptr, "f32", weight=w),
+            block_segment_sum_plain(raw, dst, rowptr, "f32", weight=w), a))
+        got = block_segment_sum(raw, dst, rowptr, "f32", out=prev.clone(),
+                                weight=w)
+        d1 = max(d1, hold_bf16(
+            f"D1 bf16x weighted out={label}", name, got,
+            block_segment_sum_plain(raw, dst, rowptr, "f32",
+                                    out=prev.clone(), weight=w),
+            a + prev.float().abs()))
+        empty = rowptr[1:] == rowptr[:-1]
+        if not torch.equal(got[empty], prev[empty]):
+            raise AssertionError(f"D1 bf16x out= on {name} changed rows "
+                                 "without edges")
+    errs["block_segment_sum"] = d1
+    xla = 0.0
+    for kind, (s, d, w, rp, n_out), inp in (("xla bf16x", fwd, xb),
+                                            ("xla T bf16x", rev, gb)):
+        xla = max(xla, hold_bf16(
+            kind, name, xla_spmm(s, d, w, rp, inp),
+            block_segment_sum_plain(row_gather_plain(inp, s), d, rp, "f32",
+                                    weight=w),
+            abssum(s, d, w, inp, n_out)))
+    errs["xla_spmm"] = xla
+    log(f"kernel check bf16x {name}: d={x.shape[1]} " + ", ".join(
+        f"{k} max_abs_err=" + (json.dumps({p: f"{v:.3e}" for p, v in e.items()})
+                               if isinstance(e, dict) else f"{e:.3e}")
+        for k, e in errs.items()))
+    return errs
+
+
+def merge_errs(into: dict, errs: dict) -> dict:
+    """The larger |err| per key (per precision for K1)."""
+    for k, v in errs.items():
+        if isinstance(v, dict):
+            merge_errs(into.setdefault(k, {}), v)
+        else:
+            into[k] = max(into.get(k, 0.0), v)
+    return into
 
 
 def edge_case_graphs(rng: np.random.Generator):
@@ -1140,17 +1325,25 @@ def train_path(tmp: str, impl: str, dev, model_name: str = "LightGCN"
 
 
 def serve_path(run: dict, tmp: str, impl: str, dev,
-               batches=BATCHES) -> dict:
+               batches=BATCHES, label: str | None = None) -> dict:
     """Export the trained checkpoint and serve it, every counter set to
     0 just before and read just after; the export must launch the
     impl's forward kernels once per layer, serving none.  The exported
     tables are held against a plain propagation: the mean of layers
-    0..N_LAYERS over the graph (LightGCN's and SGL's evaluation)."""
+    0..N_LAYERS over the graph (LightGCN's and SGL's evaluation); for an
+    ``activation_dtype: bfloat16`` run (``label``), from bf16 on the
+    plain versions of the ell kernel, within BF16_TABLE_REL of the
+    largest |entry| (a layer's bf16 rounding may differ by one unit where
+    the f32 sum order moves it, and the next layers carry it)."""
+    from recbole_gnn_tpu_torch.ops.ell_spmm import ell_spmm_plain
     from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
     from recbole_gnn_tpu_torch.serve import RecServer, export_artifact
     model_name = str(run["config"]["model"])
-    art = os.path.join(tmp, f"{model_name.lower()}-{impl}.npz")
-    tag = impl if model_name == "LightGCN" else f"{model_name} {impl}"
+    name = label or model_name
+    art = os.path.join(tmp, f"{name.lower()}-{impl}.npz")
+    tag = impl if model_name == "LightGCN" else f"{name} {impl}"
+    bf16 = str(run["config"].or_default("activation_dtype", "")
+               ).startswith("bf")
     reset_counts()
     t0 = time.perf_counter()
     export_artifact(run["config"], art, checkpoint_path=run["ckpt"],
@@ -1197,18 +1390,26 @@ def serve_path(run: dict, tmp: str, impl: str, dev,
     graph, params = run["graph"], run["params"]
     with torch.inference_mode():
         h = torch.cat([params["user_emb"], params["item_emb"]])
+        if bf16:
+            h = h.to(torch.bfloat16)
         layers = [h]
         for _ in range(N_LAYERS):
-            h = spmm_coo(graph.src, graph.dst, graph.weight, h,
-                         graph.n_nodes)
+            h = (ell_spmm_plain(graph.ell, h) if bf16 else
+                 spmm_coo(graph.src, graph.dst, graph.weight, h,
+                          graph.n_nodes))
             layers.append(h)
-        final = torch.stack(layers).mean(0).cpu().numpy()
+        final = torch.stack([t.float() for t in layers]).mean(0).cpu().numpy()
     with np.load(art, allow_pickle=False) as z:
         exported = np.concatenate([z["user_table"], z["item_table"]])
     table_err = float(np.abs(exported - final).max())
     log(f"[{tag}] export vs plain propagation: max_abs_err="
         f"{table_err:.3e} (max |table| {np.abs(final).max():.3e})")
-    np.testing.assert_allclose(exported, final, rtol=1e-4, atol=1e-7)
+    if bf16:
+        if not table_err <= BF16_TABLE_REL * float(np.abs(final).max()):
+            raise AssertionError(f"[{tag}] exported tables differ from the "
+                                 f"plain bf16 propagation by {table_err:.3e}")
+    else:
+        np.testing.assert_allclose(exported, final, rtol=1e-4, atol=1e-7)
     return counts
 
 
@@ -1243,6 +1444,23 @@ GENERAL_EVAL_SPMMS = {"SGL": 3, "NGCF": 3, "NCL": 3, "HMLET": 6,
                       "LightGCL": 4, "DirectAU": 3, "NeuMF": 0, "SSL4REC": 0}
 
 
+# SGL with bf16 activations: its run on ell (as the general models'),
+# then SGL_BF16_STEPS steps on each of these graphs, each held against
+# its plain step; the dense block of the Gowalla shape (29,858 × 40,981
+# = 1.22e9 entries) needs dense_graph_max_entries above the default 3e8
+SGL_BF16 = {"activation_dtype": "bfloat16"}
+SGL_BF16_STEPS = 2
+SGL_BF16_GRAPHS = (
+    ("pallas", {"sparse_spmm_impl": "pallas",
+                "pallas_spmm_precision": "f32x2"},
+     {"segment_spmm": 9, "segment_spmm_transpose": 9}),
+    ("xla", {"sparse_spmm_impl": "xla"},
+     {"row_gather": 18, "block_segment_sum": 18}),
+    ("dense", {"enable_sparse": False,
+               "dense_graph_max_entries": 1_300_000_000}, {}))
+SGL_BF16_METRIC_BAND = 0.02     # the JAX package's own band against f32
+
+
 def general_config(tmp: str, model: str, impl: str = "ell", **over) -> dict:
     """The model at its published yaml settings on the sparse graph,
     with its GENERAL_OVERRIDES and ``over``; each (model, impl) in its
@@ -1259,7 +1477,8 @@ def general_config(tmp: str, model: str, impl: str = "ell", **over) -> dict:
 
 
 def general_step_vs_plain(model, params: dict, extras: dict, batch: dict,
-                          mode: int, want: dict, tag: str) -> dict:
+                          mode: int, want: dict, tag: str,
+                          bf16: bool = False) -> dict:
     """One training step of ``model`` on the kernels against the same
     step with every sparse SpMM replaced by the plain ``spmm_coo`` over
     the same graph and weights (the views', the dropped edges'),
@@ -1268,7 +1487,11 @@ def general_step_vs_plain(model, params: dict, extras: dict, batch: dict,
     ``want``, the plain step nothing.  Gradients of every param leaf:
     |Δ| ≤ STEP_RTOL·|g| + GENERAL_STEP_ATOL_FRAC·max|g| with max|g| over
     all leaves (a gate's bias before its BatchNorm has a true gradient
-    of 0, so its own maximum is rounding noise); the loss: STEP_RTOL."""
+    of 0, so its own maximum is rounding noise); the loss: STEP_RTOL.
+    With ``bf16`` (``activation_dtype: bfloat16``) the plain step runs
+    the plain versions of the graph impl's own kernels, with their bf16
+    rounding (:class:`PlainSpmm`), held by :func:`hold_step`'s bf16
+    bounds."""
     import importlib
     from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
     # by module path: the ops package re-exports a function named spmm
@@ -1285,6 +1508,8 @@ def general_step_vs_plain(model, params: dict, extras: dict, batch: dict,
                              f"expected {want}")
 
     def plain(graph, x, weight_grad=False):
+        if bf16:
+            return PlainSpmm.apply(x, graph)
         return spmm_coo(graph.src, graph.dst, graph.weight, x, graph.n_nodes)
 
     kernel_spmm = spmm_mod.spmm
@@ -1299,7 +1524,50 @@ def general_step_vs_plain(model, params: dict, extras: dict, batch: dict,
     finally:
         for m in [spmm_mod] + bound:
             m.spmm = kernel_spmm
-    return hold_step(tag, "plain", (k_loss, k_grads), (p_loss, p_grads))
+    return hold_step(tag, "plain", (k_loss, k_grads), (p_loss, p_grads),
+                     bf16)
+
+
+def plain_spmm(graph, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """The graph impl's SpMM (or its transpose) by the plain versions of
+    its kernels, with their rounding for a bf16 x: ``ell_spmm_plain``
+    over the layouts; ``segment_spmm_plain`` in the graph's precision
+    (``pallas``, f32 out); D2's and D1's plain versions (``xla``)."""
+    from recbole_gnn_tpu_torch.ops.ell_spmm import ell_spmm_plain
+    from recbole_gnn_tpu_torch.ops.gather import row_gather_plain
+    from recbole_gnn_tpu_torch.ops.segment_spmm import (reverse_weight,
+                                                        segment_spmm_plain)
+    from recbole_gnn_tpu_torch.ops.segment_sum import block_segment_sum_plain
+    if graph.impl == "ell" and graph.ell is not None and \
+            graph.rev_ell is not None:
+        return ell_spmm_plain(graph.rev_ell if transpose else graph.ell, x)
+    if transpose:
+        s, d, w = graph.rev_src, graph.rev_dst, reverse_weight(graph,
+                                                               graph.weight)
+        rp, n = graph.rev_rowptr, graph.n_src_nodes
+    else:
+        s, d, w, rp, n = (graph.src, graph.dst, graph.weight, graph.rowptr,
+                          graph.n_nodes)
+    if graph.impl == "pallas":
+        return segment_spmm_plain(s, d, w, x, n, graph.precision)
+    return block_segment_sum_plain(row_gather_plain(x, s), d, rp, "f32",
+                                   weight=w)
+
+
+class PlainSpmm(torch.autograd.Function):
+    """``spmm`` on the plain versions (:func:`plain_spmm`), forward and
+    transpose: the plain step of an ``activation_dtype: bfloat16`` run
+    (autograd hands the transpose's output on in x's dtype, as it does
+    the kernels')."""
+
+    @staticmethod
+    def forward(ctx, x, graph):
+        ctx.graph = graph
+        return plain_spmm(graph, x, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_spmm(ctx.graph, g.contiguous(), True), None
 
 
 def step_loss_and_grads(model, params: dict, extras: dict, batch: dict,
@@ -1321,24 +1589,38 @@ def step_loss_and_grads(model, params: dict, extras: dict, batch: dict,
     return loss.detach(), grads
 
 
-def hold_step(tag: str, what: str, got: tuple, want: tuple) -> dict:
+def hold_step(tag: str, what: str, got: tuple, want: tuple,
+              bf16: bool = False) -> dict:
     """A step's (loss, grads) against another form of the same step
     (``what``): the loss within STEP_RTOL, every gradient leaf within
     |Δ| ≤ STEP_RTOL·|g| + GENERAL_STEP_ATOL_FRAC·max|g|, max|g| over all
     leaves (a gate's bias before its BatchNorm has a true gradient of 0,
-    so its own maximum is rounding noise)."""
+    so its own maximum is rounding noise).  With ``bf16`` (an
+    ``activation_dtype: bfloat16`` step, whose outputs and cotangents are
+    rounded to bf16 where f32 sum order may put them on the other side):
+    the loss within BF16_STEP_LOSS_RTOL, each leaf's largest |Δ| within
+    BF16_STEP_GRAD_MAX·max|g| and ‖Δ‖ within BF16_STEP_GRAD_NORM·‖g‖."""
     (k_loss, k_grads), (p_loss, p_grads) = got, want
     out = {"loss_kernel": float(k_loss), f"loss_{what}": float(p_loss),
            "loss_abs_err": float((k_loss - p_loss).abs())}
-    if not out["loss_abs_err"] <= STEP_RTOL * abs(float(p_loss)):
+    rtol = BF16_STEP_LOSS_RTOL if bf16 else STEP_RTOL
+    if not out["loss_abs_err"] <= rtol * abs(float(p_loss)):
         raise AssertionError(f"[{tag}] kernel step loss differs from "
                              f"{what}: {out}")
     g_max = max(float(g.abs().max()) for g in p_grads if g.numel())
-    worst = 0.0
+    worst = worst_norm = 0.0
     for i, (kg, pg) in enumerate(zip(k_grads, p_grads)):
         err = (kg - pg).abs()
-        lim = STEP_RTOL * pg.abs() + GENERAL_STEP_ATOL_FRAC * g_max
-        if not (bool((err <= lim).all()) and bool(torch.isfinite(kg).all())):
+        if bf16:
+            norm = float(err.norm() / pg.norm().clamp_min(1e-30))
+            worst_norm = max(worst_norm, norm)
+            ok = (float(err.max()) <= BF16_STEP_GRAD_MAX * g_max
+                  and norm <= BF16_STEP_GRAD_NORM)
+            lim = BF16_STEP_GRAD_MAX * g_max
+        else:
+            lim = STEP_RTOL * pg.abs() + GENERAL_STEP_ATOL_FRAC * g_max
+            ok = bool((err <= lim).all())
+        if not (ok and bool(torch.isfinite(kg).all())):
             raise AssertionError(
                 f"[{tag}] kernel step gradient of leaf {i} differs from "
                 f"{what}: max |err| {float(err.max()):.3e}, worst excess "
@@ -1346,14 +1628,20 @@ def hold_step(tag: str, what: str, got: tuple, want: tuple) -> dict:
         worst = max(worst, float(err.max()))
     out.update(grad_max_abs_err=worst, grad_max_abs=g_max,
                grad_leaves=len(p_grads))
+    if bf16:
+        out["grad_max_rel_norm_err"] = worst_norm
     return out
 
 
-def general_path(tmp: str, model_name: str, dev) -> dict:
+def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
+                 label: str | None = None) -> dict:
     """Train ``model_name`` through ``run_recbole_gnn_tpu`` on ``ell``
     with every counter set to 0 just before and read just after; check
     the run and its launch counts; time its steps and an evaluation;
-    for a graph model one step on the kernels against the plain one."""
+    for a graph model one step on the kernels against the plain one.
+    ``over``: config overrides, the run named ``label`` (its own
+    checkpoint directory); ``activation_dtype: bfloat16`` holds the step
+    by :func:`hold_step`'s bf16 bounds."""
     from recbole_gnn_tpu_torch.config import Config
     from recbole_gnn_tpu_torch.eval.evaluator import to_device
     from recbole_gnn_tpu_torch.models import get_model
@@ -1364,13 +1652,23 @@ def general_path(tmp: str, model_name: str, dev) -> dict:
     from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
                                                        params_from_numpy)
     from recbole_gnn_tpu_torch.train.trainer import Trainer
-    cd = general_config(tmp, model_name)
-    tag = f"{model_name} ell"
+    cd = general_config(tmp, model_name, **(over or {}))
+    if label:
+        ck = os.path.join(tmp, f"{label}-ell")
+        cd.update(checkpoint_dir=ck,
+                  metrics_log_path=os.path.join(ck, "train.jsonl"))
+    bf16 = str(cd.get("activation_dtype", "")).startswith("bf")
+    tag = f"{label or model_name} ell"
+    if over:
+        log(f"[{tag}] config {json.dumps(over)}")
     epochs = cd["epochs"]
     if model_name in GENERAL_OVERRIDES:
         over, why = GENERAL_OVERRIDES[model_name]
         log(f"[{tag}] override {json.dumps(over)}: {why}")
     torch.cuda.reset_peak_memory_stats()
+    # what earlier runs of this process still hold: the run's own peak
+    # is the peak above it
+    held_bytes = torch.cuda.memory_allocated()
     builds0 = _layout_args.builds
     reset_counts()
     t0 = time.perf_counter()
@@ -1428,7 +1726,9 @@ def general_path(tmp: str, model_name: str, dev) -> dict:
                 f"{epochs} epoch(s) of {steps} steps; expected "
                 f"{2 + 4 * epochs}")
     log(f"[{tag}] train peak device memory (max_memory_allocated): "
-        f"{peak_bytes} bytes ({peak_bytes / 2**30:.3f} GiB)")
+        f"{peak_bytes} bytes ({peak_bytes / 2**30:.3f} GiB), "
+        f"{peak_bytes - held_bytes} above the {held_bytes} bytes that "
+        "earlier runs of the process hold")
 
     ckpt = os.path.join(cd["checkpoint_dir"],
                         f"{model_name}-gowalla_shape.ckpt")
@@ -1461,7 +1761,7 @@ def general_path(tmp: str, model_name: str, dev) -> dict:
         batch = to_device(next(iter(train_loader)), dev)
         step_err = general_step_vs_plain(
             model, params, extras, batch, mode,
-            {"ell_spmm": n, "ell_spmm_transpose": n}, tag)
+            {"ell_spmm": n, "ell_spmm_transpose": n}, tag, bf16)
         log(f"[{tag}] step vs plain (loss mode {mode}): " + ", ".join(
             f"{k} {v:.6e}" for k, v in step_err.items()))
     summary = {"epochs": epochs, "steps_per_epoch": steps,
@@ -1472,7 +1772,8 @@ def general_path(tmp: str, model_name: str, dev) -> dict:
                "step_median_ms": float(np.median(step_ms)),
                "device_ms_per_step": prof.get("device_ms_per_step"),
                "device_busy_share": prof.get("device_busy_share"),
-               "peak_bytes": peak_bytes, "eval_s": eval_s,
+               "peak_bytes": peak_bytes,
+               "run_peak_bytes": peak_bytes - held_bytes, "eval_s": eval_s,
                "valid_recall@10": [e["recall@10"] for e in valids],
                "test": res["test_result"], "layout_builds": layout_builds,
                "step_vs_plain": step_err}
@@ -1515,6 +1816,103 @@ def general_extra_steps(tmp: str, runs: dict, dev) -> dict:
     return out
 
 
+def sgl_bf16_phase(tmp: str, f32_run: dict, dev) -> dict:
+    """SGL with ``activation_dtype: bfloat16``: its run on ``ell`` as the
+    general models' (:func:`general_path`: every count exact, the step
+    held against the plain step), its test ndcg@10 and recall@10 within
+    SGL_BF16_METRIC_BAND of the f32 run's, its peak memory beside the
+    f32 run's, its export and serving; then SGL_BF16_STEPS steps on each
+    of SGL_BF16_GRAPHS from the trained params, the launches held and
+    each step against its plain one (dense: against the f32 step from
+    the bf16-rounded embeddings, the tables within 1e-6 of theirs).
+    Returns the launch counts by path."""
+    from recbole_gnn_tpu_torch.config import Config
+    from recbole_gnn_tpu_torch.eval.evaluator import to_device
+    from recbole_gnn_tpu_torch.models import get_model
+    from recbole_gnn_tpu_torch.quick_start import (create_dataset,
+                                                   data_preparation)
+    t0 = time.perf_counter()
+    paths = {}
+    with capped_train_steps(GENERAL_TRAIN_STEPS):
+        run = general_path(tmp, "SGL", dev, over=SGL_BF16, label="SGL-bf16")
+    paths["sgl_bf16_train"] = run["counts"]
+    got, want = run["summary"], f32_run["summary"]
+    for k in ("ndcg@10", "recall@10"):
+        gap = abs(got["test"][k] - want["test"][k])
+        log(f"[SGL-bf16] test {k} {got['test'][k]:.5f} against f32 "
+            f"{want['test'][k]:.5f}: gap {gap:.5f}")
+        if not gap < SGL_BF16_METRIC_BAND:
+            raise AssertionError(f"[SGL-bf16] test {k} {gap:.5f} from the "
+                                 "f32 run")
+    log(f"[SGL-bf16] train peak device memory above what the process "
+        f"held before the run: {got['run_peak_bytes']} bytes against f32 "
+        f"SGL's {want['run_peak_bytes']} "
+        f"({got['run_peak_bytes'] / want['run_peak_bytes']:.3f}x)")
+    paths["sgl_bf16_serve"] = serve_path(run, tmp, "ell", dev,
+                                         batches=(1, 64), label="SGL-bf16")
+    params = run["params"]
+    for impl, over, want_counts in SGL_BF16_GRAPHS:
+        tag = f"SGL-bf16 {impl}"
+        if impl == "dense":
+            log(f"[{tag}] override {json.dumps(over)}: the Gowalla block "
+                "is above the default dense threshold")
+        cd = general_config(tmp, "SGL", **SGL_BF16, **over)
+        config = Config(model="SGL", dataset="gowalla_shape", config_dict=cd)
+        (loader, ds), _, _ = data_preparation(config, create_dataset(config))
+        model = get_model("SGL")(config, ds, dev)
+        extras = model.init_extras(torch.Generator().manual_seed(SEED))
+        it = iter(loader)
+        for i in range(SGL_BF16_STEPS):
+            batch = to_device(next(it), dev)
+            if impl == "dense":
+                err = dense_bf16_step(model, params, extras, batch, tag)
+            else:
+                err = general_step_vs_plain(model, params, extras, batch, 0,
+                                            want_counts, tag, bf16=True)
+            log(f"[{tag}] step {i} vs plain: " + ", ".join(
+                f"{k} {v:.6e}" for k, v in err.items()))
+        paths[f"sgl_bf16_{impl}_steps"] = {
+            k: want_counts.get(k, 0) * SGL_BF16_STEPS for k in counters()}
+        del model, extras, ds, loader
+        torch.cuda.empty_cache()
+    log(f"SGL bf16 phase: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def dense_bf16_step(model, params: dict, extras: dict, batch: dict,
+                    tag: str) -> dict:
+    """SGL's bf16 step on the dense graph, which launches no kernel of
+    the port: the first layer's f32 product of the bf16 input (JAX's
+    promotion) is the f32 product of the bf16-rounded embeddings, so
+    the propagated tables must equal those of the f32 model from the
+    rounded embeddings (within 1e-6 of their largest |entry|: the same
+    cuBLAS products), and the step its step (:func:`hold_step`'s bf16
+    bounds: the reg term reads the unrounded params)."""
+    rounded = {k: v.detach().to(torch.bfloat16).float()
+               for k, v in params.items()}
+    reset_counts()
+    k_step = step_loss_and_grads(model, params, extras, batch, 0)
+    with torch.no_grad():
+        tables = model.propagate(params, model.consts, extras)
+    if any(read_counts().values()):
+        raise AssertionError(f"[{tag}] the dense step launched a kernel: "
+                             f"{read_counts()}")
+    model.act_dtype = None
+    try:
+        f_step = step_loss_and_grads(model, rounded, extras, batch, 0)
+        with torch.no_grad():
+            f_tables = model.propagate(rounded, model.consts, extras)
+    finally:
+        model.act_dtype = torch.bfloat16
+    for a, b in zip(tables, f_tables):
+        if a.dtype != torch.float32 or not bool(
+                ((a - b).abs() <= 1e-6 * b.abs().max()).all()):
+            raise AssertionError(f"[{tag}] the bf16 tables ({a.dtype}) "
+                                 "differ from the f32 ones of the rounded "
+                                 "embeddings")
+    return hold_step(tag, "f32 rounded", k_step, f_step, bf16=True)
+
+
 def general_main(tmp: str, out_path: str) -> int:
     """The general-models phase (a child process of :func:`main`, on
     the data ``main`` wrote in ``tmp``): each model's path, SGL's
@@ -1540,6 +1938,7 @@ def general_main(tmp: str, out_path: str) -> int:
         profiles[model_name] = run["profile"]
         general[model_name] = run
     paths["sgl_serve"] = serve_path(general["SGL"], tmp, "ell", dev)
+    paths.update(sgl_bf16_phase(tmp, general["SGL"], dev))
     try:
         export_artifact(general["NeuMF"]["config"],
                         os.path.join(tmp, "neumf.npz"),
@@ -2407,12 +2806,15 @@ def social_serve(run: dict, tmp: str, dev) -> dict:
     """Export MHCN from its checkpoint and serve it by ``RecServer``,
     every counter set to 0 just before and read just after (the export
     propagates once: 10 K2; serving launches none); the exported tables
-    against a propagation on the plain SpMMs, the served top-k against
-    those plain tables (float64 on the host), ``recommend`` latency and
-    one HTTP round trip."""
+    against a propagation on the plain SpMMs in float64 (an f32 one sums
+    with CUDA atomics in an order that changes from run to run, which
+    put one entry near 0 of 121,152 past the tolerance in one run of
+    the same code), the served top-k against those plain tables (float64
+    on the host), ``recommend`` latency and one HTTP round trip."""
     import importlib
     from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
     from recbole_gnn_tpu_torch.serve import RecServer, export_artifact
+    from recbole_gnn_tpu_torch.train.optim import tree_map
     spmm_mod = importlib.import_module("recbole_gnn_tpu_torch.ops.spmm")
     tag = "MHCN social serve"
     art = os.path.join(tmp, "mhcn-social.npz")
@@ -2425,10 +2827,13 @@ def social_serve(run: dict, tmp: str, dev) -> dict:
     kernel_spmm = spmm_mod.spmm
     spmm_mod.spmm = lambda g, x, weight_grad=False: spmm_coo(
         g.src, g.dst, g.weight, x, g.n_nodes)
+    f64 = (lambda t: t.double() if isinstance(t, torch.Tensor)
+           and torch.is_floating_point(t) else t)
     try:
         with torch.inference_mode():
-            u, i = run["model"].propagate(run["params"], run["model"].consts,
-                                          run["extras"])
+            u, i = run["model"].propagate(tree_map(f64, run["params"]),
+                                          run["model"].consts,
+                                          tree_map(f64, run["extras"] or {}))
     finally:
         spmm_mod.spmm = kernel_spmm
     plain = (u.cpu().numpy(), i.cpu().numpy())
@@ -2543,6 +2948,9 @@ PARALLEL_MESH = {"dp": 2, "tp": 2}
 PARALLEL_RANKS = 4                 # gloo ranks that share the one card
 PARALLEL_SHARDS = 4                # edge shards run in one process
 PARALLEL_STEPS = 10                # steps of each gloo-rank fit
+# K7b timed alone: a validation batch's users and history width
+PARALLEL_TOPK_USERS = 4096
+PARALLEL_TOPK_HISTORY = 64
 # the gloo ranks' fit against the single-process fit, both on the card
 # from one checkpoint: the same sums in another order (edge shards,
 # all-reduced partials) through PARALLEL_STEPS Adam steps, the tolerance
@@ -2606,9 +3014,10 @@ def parallel_shards(graph, dev) -> dict:
     """(iii) Every shard of the edge-sharded K2/K2ᵀ in this process at
     the slice shape: the shards' forward blocks against unsharded K2,
     the sum of their transpose shares against unsharded K2ᵀ, within
-    TOL_REL_ABSSUM; each shard's edges, K2 / K2ᵀ ms, plain ms and
-    bound (the rows it gathers read once, its output block written
-    once)."""
+    TOL_REL_ABSSUM; each shard's edges, K2 / K2ᵀ ms, plain ms, bound
+    (the rows it gathers read once, its output block written once) and
+    library yardstick (``torch.sparse.mm`` of the shard's CSR, which
+    the port never calls)."""
     from recbole_gnn_tpu_torch.diag.timing import bound_ms
     from recbole_gnn_tpu_torch.ops.ell_spmm import (ell_spmm, ell_spmm_plain,
                                                     ell_spmm_transpose)
@@ -2649,7 +3058,17 @@ def parallel_shards(graph, dev) -> dict:
             m = (dst >= i * blk) & (dst < (i + 1) * blk)
             fwd_b = ell_bytes(sh.fwd, len(np.unique(src[m])), EMBEDDING_SIZE)
             rev_b = ell_bytes(sh.rev, len(np.unique(dst[m])), EMBEDDING_SIZE)
+            rows = min((i + 1) * blk, n) - i * blk
+            rel = torch.from_numpy(dst[m] - i * blk).to(dev)
+            cols = torch.from_numpy(src[m]).to(dev)
+            wm = graph.weight[:nnz][torch.from_numpy(m).to(dev)]
+            csr = sorted_csr(rel, cols, wm, rows, n)
+            csr_t = sorted_csr(cols, rel, wm, n, rows)
             per.append({
+                "library_ms": time_cuda_ms(
+                    lambda c=csr: torch.sparse.mm(c, x)),
+                "library_t_ms": time_cuda_ms(
+                    lambda c=csr_t, g=g_blk: torch.sparse.mm(c, g[:rows])),
                 "edges": sh.n_edges, "dst_rows": [i * blk,
                                                   min((i + 1) * blk, n)],
                 "k2_ms": time_cuda_ms(lambda sh=sh: shard_forward(sh, x)),
@@ -2681,11 +3100,54 @@ def parallel_shards(graph, dev) -> dict:
         f"{[round(p['plain_ms'], 4) for p in per]} / "
         f"{[round(p['plain_t_ms'], 4) for p in per]}; bound ms per shard "
         f"{[round(p['bound_ms'], 4) for p in per]} / "
-        f"{[round(p['bound_t_ms'], 4) for p in per]}; summed shards against unsharded K2 "
+        f"{[round(p['bound_t_ms'], 4) for p in per]}; torch.sparse.mm ms "
+        f"per shard {[round(p['library_ms'], 4) for p in per]} / "
+        f"{[round(p['library_t_ms'], 4) for p in per]}; summed shards "
+        "against unsharded K2 "
         f"max_abs_err {fwd_err:.3e}, K2T {rev_err:.3e}")
     return {"shards": per, "unsharded": whole, "imbalance": imbalance,
             "max_abs_err": fwd_err, "max_abs_err_t": rev_err,
             "build_s": build_s, "counts": counts, "want": want}
+
+
+def topk_alone(n_items: int, dev) -> dict:
+    """K7b (``distributed_full_sort_topk``) alone, on a group of one, at
+    the gloo ranks' validation shape: a batch of PARALLEL_TOPK_USERS
+    users against a tp = 2 block of the catalog (⌈n_items / 2⌉ rows),
+    k = TOP_K, each user's PARALLEL_TOPK_HISTORY history ids masked; its
+    time, its plain form's (the masked (B, I) scores and one
+    ``torch.topk``) and its bound: U and the block read once, the (B, I)
+    f32 scores written once and read once by the top-k, the history read
+    once; 2·B·I·D f32 operations."""
+    from recbole_gnn_tpu_torch.diag.timing import bound_by, bound_ms
+    from recbole_gnn_tpu_torch.parallel.topk import distributed_full_sort_topk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b, h, d = PARALLEL_TOPK_USERS, PARALLEL_TOPK_HISTORY, EMBEDDING_SIZE
+    rows = -(-n_items // 2)
+    u = torch.randn(b, d, device=dev, generator=gen)
+    items = torch.randn(rows, d, device=dev, generator=gen)
+    hist = torch.randint(0, rows, (b, h), device=dev, generator=gen)
+
+    def plain():
+        scores = u @ items.T
+        scores.scatter_(1, hist, float("-inf"))
+        return torch.topk(scores, TOP_K, dim=1)
+
+    got = distributed_full_sort_topk(u, items, hist, TOP_K, None)
+    want = plain()
+    if not torch.equal(got[0], want.values):
+        raise AssertionError("K7b alone: top-k values differ from the "
+                             "plain form's")
+    nb = (b * d + rows * d) * 4 + 2 * b * rows * 4 + b * h * 8 \
+        + b * TOP_K * 12
+    fl = 2 * b * rows * d
+    out = {"users": b, "item_rows": rows, "k": TOP_K,
+           "ms": time_cuda_ms(lambda: distributed_full_sort_topk(
+               u, items, hist, TOP_K, None)),
+           "plain_ms": time_cuda_ms(plain), "bytes": nb, "flops": fl,
+           "bound_ms": bound_ms(nb, fl), "bound_by": bound_by(nb, fl)}
+    log(f"[parallel K7b alone] {json.dumps(out)}")
+    return out
 
 
 def parallel_rank_main(rank: int, tmp: str, port: int, out_dir: str
@@ -2798,6 +3260,7 @@ def parallel_main(tmp: str, out_path: str) -> int:
     paths["parallel_shards"] = shards.pop("counts")
     shards.pop("want")
     summary["shards"] = shards
+    summary["topk_alone"] = topk_alone(model.n_items, dev)
 
     # (i) run --distributed: NCCL, world size 1, the edge-sharded graph
     ck = parallel_config(tmp, "nccl")["checkpoint_dir"]
@@ -2954,8 +3417,8 @@ def main() -> int:
         ell_spmm, ell_spmm_plain, ell_spmm_pad_free_plain, ell_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.gather import row_gather, row_gather_plain
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
-        SHARE_EDGES, segment_spmm, segment_spmm_plain, segment_spmm_transpose,
-        spmm_coo)
+        PRECISIONS, SHARE_EDGES, segment_spmm, segment_spmm_plain,
+        segment_spmm_transpose, spmm_coo)
     from recbole_gnn_tpu_torch.ops.segment_sum import (
         SHARE_EDGES as D1_SHARE_EDGES, block_segment_sum,
         block_segment_sum_plain)
@@ -3043,6 +3506,8 @@ def main() -> int:
             xe = torch.cat([ell["params"]["user_emb"],
                             ell["params"]["item_emb"]]).contiguous()
             k2_err, k2_err_t = check_ell("slice", eg, xe, cot)
+            # every kernel in its bf16-x mode (activation_dtype: bfloat16)
+            bf16_err = check_bf16_kernels("slice", graph, eg, xe, cot)
             # the share passes and the carry passes sum in a fixed order
             raw = row_gather(x, graph.src)      # D1's input on the xla path
             for kind, rerun in (
@@ -3090,6 +3555,7 @@ def main() -> int:
                 k2_err, k2_err_t = max(k2_err, e2[0]), max(k2_err_t, e2[1])
                 for p, v in check_k1_modes(name, g, xc, gc).items():
                     mode_err[p] = max(mode_err[p], v)
+                merge_errs(bf16_err, check_bf16_kernels(name, g, g, xc, gc))
                 if name in ("hub_rows", "rectangular", "multi_segment"):
                     errs = check_xla_kernels(f"{name} chunk={CHUNK}", g, xc,
                                              gc, chunk=CHUNK)
@@ -3272,6 +3738,59 @@ def main() -> int:
                 raw, graph.dst, rp_hub, "f32", weight=w))
             del msgs, acc, raw, d1_csr
 
+            # each kernel in its bf16-x mode at the slice shape, on bf16
+            # copies of the ell run's params and the cotangent: its time,
+            # its plain version's and its bound with 2-byte x and out
+            # (K1: f32 out)
+            xb, cb = xe.to(torch.bfloat16), cot.to(torch.bfloat16)
+            rawb = row_gather(xb, graph.src)
+            n_src, e_all = graph.n_src_nodes, graph.n_edges_padded
+            bf16_modes = {}
+
+            def bf16_mode(kernel, key, run, plain, work):
+                nb, fl = work
+                bf16_modes.setdefault(kernel, {})[key] = {
+                    "ms": time_cuda_ms(run), "plain_ms": time_cuda_ms(plain),
+                    "bound_ms": bound_ms(nb, fl),
+                    "bound_by": bound_by(nb, fl), "bytes": nb, "flops": fl}
+
+            for p in PRECISIONS:
+                bf16_mode("segment_spmm", f"bf16x_{p}",
+                          lambda p=p: segment_spmm(
+                              graph.src, graph.dst, graph.weight,
+                              graph.rowptr, xb, p),
+                          lambda p=p: segment_spmm_plain(
+                              graph.src, graph.dst, graph.weight, xb, n, p),
+                          spmm_bytes(n, n_src, e_all, n + 1, EMBEDDING_SIZE,
+                                     x_bytes=2))
+            bf16_mode("segment_spmm_transpose", "bf16x_f32x2",
+                      lambda: segment_spmm_transpose(
+                          graph.rev_src, graph.rev_dst, graph.rev_weight,
+                          graph.rev_rowptr, cb),
+                      lambda: segment_spmm_plain(
+                          graph.rev_src, graph.rev_dst, graph.rev_weight, cb,
+                          n_src),
+                      spmm_bytes(n_src, n, e_all, n_src + 1, EMBEDDING_SIZE,
+                                 x_bytes=2))
+            for kernel, meta, inp in (("ell_spmm", eg.ell, xb),
+                                      ("ell_spmm_transpose", eg.rev_ell, cb)):
+                bf16_mode(kernel, "bf16x",
+                          lambda meta=meta, inp=inp: ell_spmm(meta, inp),
+                          lambda meta=meta, inp=inp: ell_spmm_plain(meta, inp),
+                          ell_bytes(meta, inp.shape[0], EMBEDDING_SIZE,
+                                    x_bytes=2))
+            bf16_mode("row_gather", "bf16x",
+                      lambda: row_gather(xb, graph.src),
+                      lambda: row_gather_plain(xb, graph.src),
+                      d2.work(xb, graph.src))
+            bf16_mode("block_segment_sum", "bf16x_f32_weighted",
+                      lambda: block_segment_sum(rawb, graph.dst, graph.rowptr,
+                                                "f32", weight=w),
+                      lambda: block_segment_sum_plain(
+                          rawb, graph.dst, graph.rowptr, "f32", weight=w),
+                      pallas_floor.work(rawb, graph.rowptr, weighted=True))
+            del xb, cb, rawb
+
             # K1 on the same n and nnz without the hub rows (uniform) and
             # without the padding tail: what the row degrees cost it
             rdeg = (graph.rev_rowptr[1:] - graph.rev_rowptr[:-1]).cpu().numpy()
@@ -3400,12 +3919,30 @@ def main() -> int:
         "modes on pre-weighted messages: "
         + "; ".join(f"{m} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f}"
                     for m, r in d1.items()))
+    log("bf16-x modes at the slice shape (CUDA events, L2 flushed; bound "
+        "with 2-byte x): " + "; ".join(
+            f"{k} {m} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes)"
+            for k, ms in bf16_modes.items() for m, r in ms.items()))
+    log("bf16-x max_abs_err (slice and edge cases): " + json.dumps(bf16_err))
     log("host us per wrapper call (host clock, 50 calls back to back, no "
         f"sync between them): {json.dumps(host_us)}")
     log(f"launches by path: {json.dumps(paths)}")
 
     def by_path(k):
         return {p: c[k] for p, c in paths.items()}
+
+    def bf16_entry(kernel, errs, base=None):
+        """The kernel's bf16-x modes beside its other ones (``base``):
+        ms, plain ms, bound ms and max |err| per mode."""
+        ms = bf16_modes[kernel]
+        base = base or {}
+        return {f"modes_{k}": {**base.get(k, {}),
+                               **{m: r[src] for m, r in ms.items()}}
+                for k, src in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                               ("bound_ms", "bound_ms"),
+                               ("bound_by", "bound_by"))} | {
+            "modes_max_abs_err": {**base.get("max_abs_err", {}), **errs}}
 
     def in_step(path, wrapper):
         prof = profiles[path]
@@ -3435,10 +3972,12 @@ def main() -> int:
                 "in_step_us_per_launch_by_path": {
                     p: in_step(p, "ell_spmm")
                     for p in ("ell", "SimGCL", "XSimGCL") + tuple(
-                        m for m in GENERAL_MODELS if GENERAL_STEP_SPMMS[m])}}
+                        m for m in GENERAL_MODELS if GENERAL_STEP_SPMMS[m])},
+                **bf16_entry(name, {"bf16x": bf16_err[name]})}
 
     ell_paths = ("ell_train", "ell_serve", "simgcl_train", "xsimgcl_train",
-                 "sgl_serve", "srgnn_cell_ell", "mhcn_social_serve",
+                 "sgl_serve", "sgl_bf16_train", "sgl_bf16_serve",
+                 "srgnn_cell_ell", "mhcn_social_serve",
                  "parallel_single_train", "parallel_shards",
                  "parallel_nccl_train", "parallel_single_fit",
                  "parallel_gloo_train") + tuple(
@@ -3453,7 +3992,8 @@ def main() -> int:
          "launches": paths["pallas_train"]["segment_spmm"]
          + paths["pallas_serve"]["segment_spmm"]
          + paths["srgnn_cell_pallas"]["segment_spmm"]
-         + paths["diffnet_social_pallas_train"]["segment_spmm"],
+         + paths["diffnet_social_pallas_train"]["segment_spmm"]
+         + paths["sgl_bf16_pallas_steps"]["segment_spmm"],
          "launches_by_path": by_path("segment_spmm"),
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound, "bound_by": bound_by(n_bytes, flops),
@@ -3462,16 +4002,19 @@ def main() -> int:
          "host_us_per_call": host_us["segment_spmm"],
          "gathered_tb_per_s": gathered / kernel_ms / 1e9,
          "in_step_us_per_launch": in_step("pallas", "segment_spmm"),
-         "modes_ms": {p: r["ms"] for p, r in k1_modes.items()},
-         "modes_plain_ms": {p: r["plain_ms"] for p, r in k1_modes.items()},
-         "modes_max_abs_err": mode_err},
+         **bf16_entry("segment_spmm", {
+             f"bf16x_{p}": e for p, e in bf16_err["segment_spmm"].items()},
+             {"ms": {p: r["ms"] for p, r in k1_modes.items()},
+              "plain_ms": {p: r["plain_ms"] for p, r in k1_modes.items()},
+              "max_abs_err": mode_err})},
         {"name": "segment_spmm_transpose", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
          "replaces": "recbole_gnn_tpu/ops/spmm.py:339",
          "replaces_function": "_spmm_core_bwd (pallas_spmm over rev_*)",
          "launches": paths["pallas_train"]["segment_spmm_transpose"]
          + paths["srgnn_cell_pallas"]["segment_spmm_transpose"]
-         + paths["diffnet_social_pallas_train"]["segment_spmm_transpose"],
+         + paths["diffnet_social_pallas_train"]["segment_spmm_transpose"]
+         + paths["sgl_bf16_pallas_steps"]["segment_spmm_transpose"],
          "launches_by_path": by_path("segment_spmm_transpose"),
          "max_abs_err": max_err_t, "ms": kernel_t_ms,
          "plain_ms": plain_t_ms, "bound_ms": bound_t,
@@ -3480,20 +4023,24 @@ def main() -> int:
          "device_us_by_kernel": split_t_us,
          "host_us_per_call": host_us["segment_spmm_transpose"],
          "gathered_tb_per_s": gathered / kernel_t_ms / 1e9,
-         "in_step_us_per_launch": in_step("pallas", "segment_spmm")},
+         "in_step_us_per_launch": in_step("pallas", "segment_spmm"),
+         **bf16_entry("segment_spmm_transpose", {
+             "bf16x_f32x2": bf16_err["segment_spmm_transpose"]})},
         {"name": "row_gather", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/row_gather.cu",
          "replaces": "scripts/diag/r3_sparse_probe4.py:98",
          "replaces_function": "case_q.kernel",
          "launches": paths["xla_train"]["row_gather"]
          + paths["xla_serve"]["row_gather"]
-         + paths["diffnet_social_xla_train"]["row_gather"],
+         + paths["diffnet_social_xla_train"]["row_gather"]
+         + paths["sgl_bf16_xla_steps"]["row_gather"],
          "launches_by_path": by_path("row_gather"),
          "max_abs_err": xla_err["row_gather"], "ms": d2_ms,
          "plain_ms": d2_plain_ms, "bound_ms": d2_bound,
          "bound_by": bound_by(d2_bytes, d2_flops), "library_ms": d2_plain_ms,
          "host_us_per_call": host_us["row_gather"],
          "in_step_us_per_launch": in_step("xla", "row_gather"),
+         **bf16_entry("row_gather", {"bf16x": bf16_err["row_gather"]}),
          "probe_shape": {k: probe2[k] for k in
                          ("ms", "plain_ms", "bound_ms", "library_ms")}},
         {"name": "block_segment_sum", "route": "cuda",
@@ -3502,7 +4049,8 @@ def main() -> int:
          "replaces_function": "make_kernel",
          "launches": paths["xla_train"]["block_segment_sum"]
          + paths["xla_serve"]["block_segment_sum"]
-         + paths["diffnet_social_xla_train"]["block_segment_sum"],
+         + paths["diffnet_social_xla_train"]["block_segment_sum"]
+         + paths["sgl_bf16_xla_steps"]["block_segment_sum"],
          "launches_by_path": by_path("block_segment_sum"),
          "max_abs_err": xla_err["block_segment_sum"], "ms": d1_ms,
          "plain_ms": d1_plain_ms, "bound_ms": d1_bound,
@@ -3513,8 +4061,10 @@ def main() -> int:
          "host_us_per_call": host_us["block_segment_sum"],
          "in_step_us_per_launch": in_step("xla", "block_segment_sum"),
          "hub_block_ms": d1_hub_ms,
-         "modes_ms": {m: r["ms"] for m, r in d1.items()},
-         "modes_plain_ms": {m: r["plain_ms"] for m, r in d1.items()},
+         **bf16_entry("block_segment_sum", {
+             "bf16x_f32_weighted": bf16_err["block_segment_sum"]},
+             {"ms": {m: r["ms"] for m, r in d1.items()},
+              "plain_ms": {m: r["plain_ms"] for m, r in d1.items()}}),
          "probe_shape": {"bound_ms": probe1["bound_ms"],
                          "library_ms": probe1["library_ms"],
                          "modes": probe1["modes"]}},

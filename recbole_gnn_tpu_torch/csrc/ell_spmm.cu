@@ -69,6 +69,17 @@
 // the sum of its real slots (ops/ell_spmm.py's ell_spmm_pad_free_plain),
 // and a non-finite x[0] spreads NaN as the plain version's einsum does.
 //
+// bf16 x (activation_dtype: bfloat16; the JAX package's _bucket_sum
+// with a bf16 x, x[idx] * w.astype(bf16) summed by an einsum into a bf16
+// output): the same two passes over bf16 rows, read by the kernel
+// itself (rows.cuh: 16-byte loads of 8 values where the row allows), no
+// f32 copy of x made.  Each slot weight is rounded to bf16 once, where
+// the lane loads it; the product of two bf16 values is exact in f32, so
+// the row is the f32 sum of the exact terms, and each output element is
+// rounded to bf16 once: where a single-row node's row is written, or,
+// for a split node, where the combine pass writes the f32 sum of its
+// f32 workspace rows.  A bf16 gather moves half the bytes of an f32 one.
+//
 // Hopper features: none beyond vector loads, cache-streaming hints and
 // warp shuffles.  The
 // indices are loaded by the group's lanes together and broadcast by
@@ -80,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;      // threads per block (both passes)
@@ -88,6 +101,7 @@ constexpr int kGroupSlots = 64;    // slots per lane group in narrow buckets
 constexpr int kMaxBuckets = 32;
 constexpr int kRowBlocksPerSM = 3;  // row-pass blocks per SM (<= 80 registers)
 constexpr int kCombineUnroll = 16;  // workspace rows in flight (combine pass)
+constexpr bool kStreamStores = true;  // out and workspace stored evict-first
 
 struct Buckets {
   int n;
@@ -100,49 +114,26 @@ struct Buckets {
   long long blocks[kMaxBuckets];        // blocks
 };
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> {
-  __device__ static void load(float* v, const float* p) { v[0] = __ldg(p); }
-  __device__ static void store(float* p, const float* a) { __stcs(p, a[0]); }
-};
-template <>
-struct Vec<2> {
-  __device__ static void load(float* v, const float* p) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-  }
-  __device__ static void store(float* p, const float* a) {
-    __stcs(reinterpret_cast<float2*>(p), make_float2(a[0], a[1]));
-  }
-};
-template <>
-struct Vec<4> {
-  __device__ static void load(float* v, const float* p) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  }
-  __device__ static void store(float* p, const float* a) {
-    __stcs(reinterpret_cast<float4*>(p),
-           make_float4(a[0], a[1], a[2], a[3]));
-  }
-};
+// a slot weight as the term uses it: as stored for f32 x, rounded to
+// bf16 for bf16 x (w.astype(x.dtype))
+template <typename T>
+__device__ __forceinline__ float slot_weight(float w) {
+  if constexpr (sizeof(T) == 2) return rows::bf16_rn(w);
+  return w;
+}
 
 __device__ __forceinline__ unsigned group_mask(int L) {
   const int lane = threadIdx.x & 31;
   return L == 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane / L * L);
 }
 
-template <int VEC>
+// T: the element type of x and out (float or __nv_bfloat16); VEC: the
+// elements of one lane's loads and stores; the workspace is f32
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, kRowBlocksPerSM)
-ell_row_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
+ell_row_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                const float* __restrict__ w, const int32_t* __restrict__ vdst,
-               float* __restrict__ out, float* __restrict__ ws,
+               T* __restrict__ out, float* __restrict__ ws,
                const Buckets bk, int d, int L) {
   int b = 0;  // the bucket whose blocks hold this one
   while (b + 1 < bk.n && !((long long)blockIdx.x >= bk.block0[b] &&
@@ -172,37 +163,52 @@ ell_row_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
     int row = 0;       // the group's row being summed
     int left = K;      // its slots still to add
     int32_t ci = sub < n ? __ldcs(idx + a + sub) : 0;
-    float cw = sub < n ? __ldcs(w + a + sub) : 0.f;
+    float cw = sub < n ? slot_weight<T>(__ldcs(w + a + sub)) : 0.f;
     for (int e0 = 0; e0 < n; e0 += L) {
       const int m = min(L, n - e0);
       // the next L slots, in flight while these are gathered
       const int nx = e0 + L + sub;
       const int32_t ni = nx < n ? __ldcs(idx + a + nx) : 0;
-      const float nw = nx < n ? __ldcs(w + a + nx) : 0.f;
+      const float nw = nx < n ? slot_weight<T>(__ldcs(w + a + nx)) : 0.f;
       for (int u0 = 0; u0 < m; u0 += kUnroll) {
-        float v[kUnroll][VEC];
+        rows::Piece<T, VEC> v[kUnroll];
         float wt[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int s = __shfl_sync(gmask, ci, (u0 + u) % L, L);
           wt[u] = __shfl_sync(gmask, cw, (u0 + u) % L, L);
           if (active && u0 + u < m) {
-            Vec<VEC>::load(v[u], x + (long long)s * d + col);
+            v[u].ldg(x + (long long)s * d + col);
           } else {
-#pragma unroll
-            for (int q = 0; q < VEC; ++q) v[u][q] = 0.f;
+            v[u].zero();
           }
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (u0 + u < m) {  // group-uniform
 #pragma unroll
-            for (int q = 0; q < VEC; ++q) acc[q] += wt[u] * v[u][q];
+            for (int q = 0; q < VEC; ++q) acc[q] += wt[u] * v[u].get(q);
             if (--left == 0) {  // the row is complete
               const int t = __ldcs(rdst + row);
-              float* o = t >= 0 ? out + (long long)t * d
-                                : ws + (long long)(-1 - t) * d;
-              if (active) Vec<VEC>::store(o + col, acc);
+              if (active) {
+                if constexpr (sizeof(T) == 4) {
+                  // one store through a selected pointer: two stores
+                  // in two branches cost the f32 row pass its register
+                  // budget (32 bytes of spills, 7 % of its time on an
+                  // H100 at the LightGCN slice shape)
+                  float* o = t >= 0
+                                 ? reinterpret_cast<float*>(out) +
+                                       (long long)t * d
+                                 : ws + (long long)(-1 - t) * d;
+                  rows::store_f32<float, VEC>(o + col, acc, kStreamStores);
+                } else if (t >= 0) {  // bf16 out, f32 workspace
+                  rows::store_f32<T, VEC>(out + (long long)t * d + col, acc,
+                                          kStreamStores);
+                } else {
+                  rows::store_f32<float, VEC>(
+                      ws + (long long)(-1 - t) * d + col, acc, kStreamStores);
+                }
+              }
 #pragma unroll
               for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
               ++row;
@@ -218,14 +224,18 @@ ell_row_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
 }
 
 // each remaining node once: the sum of its workspace rows in row order
-// (a split node), or 0 (an isolated node: no rows)
-template <int VEC>
+// (a split node), or 0 (an isolated node: no rows); f32 workspace rows
+// in, T out
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 ell_combine_kernel(const float* __restrict__ ws,
                    const int32_t* __restrict__ rest_node,
                    const int32_t* __restrict__ rest_start,
                    const int32_t* __restrict__ rest_count,
-                   float* __restrict__ out, long long n_rest, int d, int L) {
+                   T* __restrict__ out, long long n_rest, int d, int L) {
+  // loads in flight: fewer for the 8-wide pieces of bf16 rows, whose
+  // f32 workspace pieces are twice as many registers
+  constexpr int U = VEC > 4 ? kCombineUnroll / 2 : kCombineUnroll;
   const long long j =
       (long long)blockIdx.x * (kThreads / L) + threadIdx.x / L;
   if (j >= n_rest) return;
@@ -240,24 +250,23 @@ ell_combine_kernel(const float* __restrict__ ws,
 #pragma unroll
     for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
     int r = 0;
-    // kCombineUnroll loads issued together, added in row order
-    for (; r + kCombineUnroll <= cnt; r += kCombineUnroll) {
-      float v[kCombineUnroll][VEC];
+    // U loads issued together, added in row order
+    for (; r + U <= cnt; r += U) {
+      rows::Piece<float, VEC> v[U];
 #pragma unroll
-      for (int u = 0; u < kCombineUnroll; ++u)
-        Vec<VEC>::load(v[u], p + (long long)(r + u) * d + col);
+      for (int u = 0; u < U; ++u) v[u].ldg(p + (long long)(r + u) * d + col);
 #pragma unroll
-      for (int u = 0; u < kCombineUnroll; ++u)
+      for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int q = 0; q < VEC; ++q) acc[q] += v[u][q];
+        for (int q = 0; q < VEC; ++q) acc[q] += v[u].get(q);
     }
     for (; r < cnt; ++r) {
-      float v[VEC];
-      Vec<VEC>::load(v, p + (long long)r * d + col);
+      rows::Piece<float, VEC> v;
+      v.ldg(p + (long long)r * d + col);
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) acc[q] += v[q];
+      for (int q = 0; q < VEC; ++q) acc[q] += v.get(q);
     }
-    Vec<VEC>::store(out + node * d + col, acc);
+    rows::store_f32<T, VEC>(out + node * d + col, acc, kStreamStores);
   }
 }
 
@@ -268,15 +277,17 @@ int lanes_for(int d, int vec) {
   return L;
 }
 
-template <int VEC>
-int launch(const float* x, const int32_t* idx, const float* w,
-           const int32_t* vdst, float* out, float* ws,
+template <typename T, int VEC>
+int launch(const void* x, const int32_t* idx, const float* w,
+           const int32_t* vdst, void* out, float* ws,
            const int32_t* rest_node, const int32_t* rest_start,
            const int32_t* rest_count, long long n_rest, const Buckets& bk,
            long long n_blocks, int d, int L, cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  T* op = static_cast<T*>(out);
   if (n_blocks > 0) {
-    ell_row_kernel<VEC><<<(unsigned)n_blocks, kThreads, 0, st>>>(
-        x, idx, w, vdst, out, ws, bk, d, L);
+    ell_row_kernel<T, VEC><<<(unsigned)n_blocks, kThreads, 0, st>>>(
+        xp, idx, w, vdst, op, ws, bk, d, L);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -284,30 +295,34 @@ int launch(const float* x, const int32_t* idx, const float* w,
     const long long per_block = kThreads / L;
     const long long blocks = (n_rest + per_block - 1) / per_block;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    ell_combine_kernel<VEC><<<(unsigned)blocks, kThreads, 0, st>>>(
-        ws, rest_node, rest_start, rest_count, out, n_rest, d, L);
+    ell_combine_kernel<T, VEC><<<(unsigned)blocks, kThreads, 0, st>>>(
+        ws, rest_node, rest_start, rest_count, op, n_rest, d, L);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (n_in, d) f32; idx / w (E_pad,) int32 / f32, the buckets' slots one
-// bucket after another, each row-major (rows[b], ks[b]); vdst (n_vrows,)
-// int32; out (n_nodes, d) f32; ws (>= the split nodes' virtual rows, d)
-// f32 scratch; rest_node / rest_start / rest_count (n_rest,) int32.  ks
-// and rows are HOST arrays of n_buckets (<= 32) entries.  vec: the float
-// width of the x/out/ws accesses (1, 2 or 4; d % vec == 0, x aligned to
-// 4 * vec bytes).  Launches the row pass and, if n_rest > 0, the combine
-// pass on `stream`; returns a cudaError_t.
-extern "C" int ell_spmm_f32(const void* x, const void* idx, const void* w,
-                            const void* vdst, void* out, void* ws,
-                            const void* rest_node, const void* rest_start,
-                            const void* rest_count, long long n_rest,
-                            const long long* ks, const long long* rows,
-                            int n_buckets, int d, int vec, void* stream) {
+// x (n_in, d) and out (n_nodes, d), both f32 (bf16 == 0) or both bf16
+// (bf16 == 1); idx / w (E_pad,) int32 / f32, the buckets' slots one
+// bucket after another, each row-major (rows[b], ks[b]); vdst
+// (n_vrows,) int32; ws (>= the split nodes' virtual rows, d) f32
+// scratch; rest_node / rest_start / rest_count (n_rest,) int32.  ks and
+// rows are HOST arrays of n_buckets (<= 32) entries.  vec: the elements
+// of each x/out/ws access (f32: 1, 2 or 4; bf16: 1, 2, 4 or 8; d % vec
+// == 0, x and out aligned to vec elements).  Launches the row pass and,
+// if n_rest > 0, the combine pass on `stream`; returns a cudaError_t.
+extern "C" int ell_spmm_launch(const void* x, const void* idx, const void* w,
+                               const void* vdst, void* out, void* ws,
+                               const void* rest_node, const void* rest_start,
+                               const void* rest_count, long long n_rest,
+                               const long long* ks, const long long* rows,
+                               int n_buckets, int d, int vec, int bf16,
+                               void* stream) {
+  const int max_vec = bf16 ? 8 : 4;
   if (n_buckets < 0 || n_buckets > kMaxBuckets || n_rest < 0 || d <= 0 ||
-      (vec != 1 && vec != 2 && vec != 4) || d % vec != 0)
+      vec < 1 || vec > max_vec || (vec & (vec - 1)) != 0 || d % vec != 0 ||
+      (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
   const int L = lanes_for(d, vec);
   const long long groups = kThreads / L;
@@ -334,24 +349,28 @@ extern "C" int ell_spmm_f32(const void* x, const void* idx, const void* w,
   }
   if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x);
   const int32_t* ip = static_cast<const int32_t*>(idx);
   const float* wp = static_cast<const float*>(w);
   const int32_t* vp = static_cast<const int32_t*>(vdst);
-  float* op = static_cast<float*>(out);
   float* sp = static_cast<float*>(ws);
   const int32_t* rn = static_cast<const int32_t*>(rest_node);
   const int32_t* rs = static_cast<const int32_t*>(rest_start);
   const int32_t* rc = static_cast<const int32_t*>(rest_count);
-  switch (vec) {
-    case 4:
-      return launch<4>(xp, ip, wp, vp, op, sp, rn, rs, rc, n_rest, bk,
-                       n_blocks, d, L, st);
-    case 2:
-      return launch<2>(xp, ip, wp, vp, op, sp, rn, rs, rc, n_rest, bk,
-                       n_blocks, d, L, st);
-    default:
-      return launch<1>(xp, ip, wp, vp, op, sp, rn, rs, rc, n_rest, bk,
-                       n_blocks, d, L, st);
+#define ELL_LAUNCH(T, V)                                                    \
+  launch<T, V>(x, ip, wp, vp, out, sp, rn, rs, rc, n_rest, bk, n_blocks, d, \
+               L, st)
+  if (bf16) {
+    switch (vec) {
+      case 8: return ELL_LAUNCH(__nv_bfloat16, 8);
+      case 4: return ELL_LAUNCH(__nv_bfloat16, 4);
+      case 2: return ELL_LAUNCH(__nv_bfloat16, 2);
+      default: return ELL_LAUNCH(__nv_bfloat16, 1);
+    }
   }
+  switch (vec) {
+    case 4: return ELL_LAUNCH(float, 4);
+    case 2: return ELL_LAUNCH(float, 2);
+    default: return ELL_LAUNCH(float, 1);
+  }
+#undef ELL_LAUNCH
 }

@@ -25,6 +25,12 @@
 // cover contiguous memory.  D wider than L*VEC takes several passes.
 // No shared memory, no atomics: every output element has one writer.
 //
+// Any element type: the kernel copies bytes, in units of U = 2, 4, 8 or
+// 16 bytes (the widest that the row's bytes and the addresses allow), so
+// a bf16 x (activation_dtype: bfloat16) is gathered as bf16 rows, bit
+// for bit what index_select gives, at half the bytes of an f32 row.  An
+// f32 row takes the units it took before (VEC floats = one unit).
+//
 // Precondition (checked by nobody on the card, as for an index_select
 // without bounds checks): 0 <= idx[j] < rows of x.
 
@@ -36,43 +42,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 8;  // rows in flight per lane group
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> {
-  __device__ static void load(float* v, const float* p) { v[0] = __ldg(p); }
-  __device__ static void store(float* p, const float* v) { p[0] = v[0]; }
-};
-template <>
-struct Vec<2> {
-  __device__ static void load(float* v, const float* p) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-  }
-  __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  }
-};
-template <>
-struct Vec<4> {
-  __device__ static void load(float* v, const float* p) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  }
-  __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <int VEC>
+// rows of d units of type U (unsigned short, unsigned int, uint2, uint4)
+template <typename U>
 __global__ void __launch_bounds__(kThreads)
-row_gather_kernel(const float* __restrict__ x,
-                  const int32_t* __restrict__ idx,
-                  float* __restrict__ out, int64_t n_out, int d, int L) {
+row_gather_kernel(const U* __restrict__ x, const int32_t* __restrict__ idx,
+                  U* __restrict__ out, int64_t n_out, int d, int L) {
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t group = t / L;
   const int sub = (int)(t % L);
@@ -87,53 +61,58 @@ row_gather_kernel(const float* __restrict__ x,
   for (int u = 0; u < kUnroll; ++u)
     row_off[u] = u < n_here ? (int64_t)__ldg(idx + first + u) * d : 0;
 
-  for (int c0 = 0; c0 < d; c0 += L * VEC) {
-    const int col = c0 + sub * VEC;
-    if (col >= d) break;  // d % VEC == 0: the whole vector is in
-    float v[kUnroll][VEC];
+  for (int c0 = 0; c0 < d; c0 += L) {
+    const int col = c0 + sub;
+    if (col >= d) break;
+    U v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (u < n_here) Vec<VEC>::load(v[u], x + row_off[u] + col);
+      if (u < n_here) v[u] = __ldg(x + row_off[u] + col);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (u < n_here)
-        Vec<VEC>::store(out + (first + u) * (int64_t)d + col, v[u]);
+      if (u < n_here) out[(first + u) * (int64_t)d + col] = v[u];
   }
 }
 
-int lanes_for(int d, int vec) {
-  const int need = (d + vec - 1) / vec;
+int lanes_for(int d) {
   int L = 1;
-  while (L < need && L < 32) L <<= 1;
+  while (L < d && L < 32) L <<= 1;
   return L;
+}
+
+template <typename U>
+int launch(const void* x, const int32_t* idx, void* out, long long n_out,
+           int d, cudaStream_t st) {
+  const int L = lanes_for(d);
+  const long long groups = (n_out + kUnroll - 1) / kUnroll;
+  const long long blocks = (groups * L + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  row_gather_kernel<U><<<(unsigned)blocks, kThreads, 0, st>>>(
+      static_cast<const U*>(x), idx, static_cast<U*>(out), n_out, d, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int row_gather_f32(const void* x, const void* idx, void* out,
-                              long long n_out, int d, int vec, void* stream) {
-  if (n_out < 0 || d <= 0 || (vec != 1 && vec != 2 && vec != 4) ||
-      d % vec != 0)
+// x (n_in, row_bytes / elem) and out (n_out, same) of any element type,
+// idx (n_out,) int32.  unit: the bytes of each access (2, 4, 8 or 16;
+// row_bytes % unit == 0, x and out aligned to unit bytes).  Launches on
+// `stream`; returns a cudaError_t.
+extern "C" int row_gather_launch(const void* x, const void* idx, void* out,
+                                 long long n_out, long long row_bytes,
+                                 int unit, void* stream) {
+  if (n_out < 0 || row_bytes <= 0 ||
+      (unit != 2 && unit != 4 && unit != 8 && unit != 16) ||
+      row_bytes % unit != 0 || row_bytes / unit > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (n_out == 0) return (int)cudaSuccess;
-  const int L = lanes_for(d, vec);
-  const long long groups = (n_out + kUnroll - 1) / kUnroll;
-  const long long blocks = (groups * L + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks), block(kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x);
+  const int d = (int)(row_bytes / unit);
   const int32_t* ip = static_cast<const int32_t*>(idx);
-  float* op = static_cast<float*>(out);
-  switch (vec) {
-    case 4:
-      row_gather_kernel<4><<<grid, block, 0, st>>>(xp, ip, op, n_out, d, L);
-      break;
-    case 2:
-      row_gather_kernel<2><<<grid, block, 0, st>>>(xp, ip, op, n_out, d, L);
-      break;
-    default:
-      row_gather_kernel<1><<<grid, block, 0, st>>>(xp, ip, op, n_out, d, L);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (unit) {
+    case 16: return launch<uint4>(x, ip, out, n_out, d, st);
+    case 8: return launch<uint2>(x, ip, out, n_out, d, st);
+    case 4: return launch<unsigned int>(x, ip, out, n_out, d, st);
+    default: return launch<unsigned short>(x, ip, out, n_out, d, st);
   }
-  return (int)cudaGetLastError();
 }

@@ -83,10 +83,24 @@
 //            the mh and ml terms are summed apart in f32 and added
 //            where a row's (or a share's part of a row's) sum is
 //            written, so a split row's carries hold mh + ml sums.
+//
+// bf16 x (activation_dtype: bfloat16): the kernel reads the bf16 rows
+// itself (rows.cuh: 16-byte loads of 8 values where the row allows; no
+// f32 copy of x is made) and writes an f32 output, as the TPU kernel
+// does whatever x's type.  The terms as _pallas_spmm_jit forms them from
+// a bf16 x: f32x2 and bf16 take the weight rounded to bf16
+// (w.astype(x.dtype)); f32x2 adds the product of the two bf16 values,
+// exact in f32 (two 8-bit significands make at most 16), and bf16 adds
+// that product rounded to bf16; packed
+// casts x to f32 (hi = x, lo = 0) and multiplies by the f32 weight, then
+// splits m as above.  The transpose gets an f32 cotangent (the forward's
+// output type) and runs the f32 kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -98,39 +112,6 @@ constexpr int kMaxSmem = 232448;  // what a block may use on H100
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kF32 = 0, kBf16 = 1, kPacked = 2;  // precision modes
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> {
-  __device__ static void load(float* v, const float* p) { v[0] = __ldg(p); }
-  __device__ static void store(float* p, const float* acc) { p[0] = acc[0]; }
-};
-template <>
-struct Vec<2> {
-  __device__ static void load(float* v, const float* p) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-  }
-  __device__ static void store(float* p, const float* acc) {
-    *reinterpret_cast<float2*>(p) = make_float2(acc[0], acc[1]);
-  }
-};
-template <>
-struct Vec<4> {
-  __device__ static void load(float* v, const float* p) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  }
-  __device__ static void store(float* p, const float* acc) {
-    *reinterpret_cast<float4*>(p) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-  }
-};
-
 __device__ __forceinline__ float bf16_rn(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -138,19 +119,23 @@ __device__ __forceinline__ float bf16_trunc(float v) {
   return __int_as_float(__float_as_int(v) & 0xffff0000);
 }
 
-// acc (and, in packed mode, lo) += the term of weight wt on x values v
-template <int MODE, int VEC>
+// acc (and, in packed mode, lo) += the term of weight wt on the x piece
+// v (x's element type T; a bf16 x's weight is rounded to bf16 but in
+// packed mode)
+template <int MODE, typename T, int VEC>
 __device__ __forceinline__ void add_term(float* acc, float* lo, float wt,
-                                         const float* v) {
+                                         const rows::Piece<T, VEC>& v) {
+  if constexpr (sizeof(T) == 2 && MODE != kPacked) wt = bf16_rn(wt);
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
+    const float xk = v.get(k);
     if constexpr (MODE == kF32) {
-      acc[k] += wt * v[k];
+      acc[k] += wt * xk;
     } else if constexpr (MODE == kBf16) {
-      acc[k] += bf16_rn(__fmul_rn(wt, v[k]));
+      acc[k] += bf16_rn(__fmul_rn(wt, xk));
     } else {
-      const float xh = bf16_trunc(v[k]);
-      const float xl = bf16_rn(__fsub_rn(v[k], xh));
+      const float xh = bf16_trunc(xk);
+      const float xl = bf16_rn(__fsub_rn(xk, xh));
       const float m = __fmul_rn(__fadd_rn(xh, xl), wt);
       const float mh = bf16_trunc(m);
       acc[k] += mh;
@@ -167,9 +152,9 @@ __device__ __forceinline__ void store_sum(float* p, const float* acc,
     float s[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) s[k] = acc[k] + lo[k];
-    Vec<VEC>::store(p, s);
+    rows::store_f32<float, VEC>(p, s);
   } else {
-    Vec<VEC>::store(p, acc);
+    rows::store_f32<float, VEC>(p, acc);
   }
 }
 
@@ -212,9 +197,10 @@ __device__ __forceinline__ bool row_split(const int64_t* rowptr, int64_t r,
   return b1 > b0 && b0 / t != (b1 - 1) / t;
 }
 
-template <int VEC, int MODE>
+// T (float or __nv_bfloat16) is deduced from x at the launch
+template <int VEC, int MODE, typename T>
 __global__ void __launch_bounds__(kGroups * 32)
-share_sum_kernel(const float* __restrict__ x,
+share_sum_kernel(const T* __restrict__ x,
                  const int32_t* __restrict__ src,
                  const float* __restrict__ w,
                  const int32_t* __restrict__ dst,
@@ -278,14 +264,13 @@ share_sum_kernel(const float* __restrict__ x,
     for (int64_t e0 = a; e0 < b; e0 += kUnroll) {
       const int i0 = (int)(e0 - blk_a);
       const int n_here = (int)min64(kUnroll, b - e0);
-      float v[kUnroll][VEC];
+      rows::Piece<T, VEC> v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (active && u < n_here) {
-          Vec<VEC>::load(v[u], x + (int64_t)s_src[i0 + u] * d + col);
+          v[u].ldg(x + (int64_t)s_src[i0 + u] * d + col);
         } else {
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) v[u][k] = 0.f;
+          v[u].zero();
         }
       }
 #pragma unroll
@@ -301,7 +286,7 @@ share_sum_kernel(const float* __restrict__ x,
 #pragma unroll
             for (int k = 0; k < VEC; ++k) acc[k] = lo[k] = 0.f;
           }
-          add_term<MODE, VEC>(acc, lo, s_w[i0 + u], v[u]);
+          add_term<MODE>(acc, lo, s_w[i0 + u], v[u]);
         }
       }
     }
@@ -321,30 +306,33 @@ share_sum_kernel(const float* __restrict__ x,
 template <int VEC, int N>
 __device__ __forceinline__ void add_carries(float* acc, const float* c,
                                             int d) {
-  float v[N][VEC];
+  rows::Piece<float, VEC> v[N];
 #pragma unroll
-  for (int u = 0; u < N; ++u) Vec<VEC>::load(v[u], c + u * 2 * (int64_t)d);
+  for (int u = 0; u < N; ++u) v[u].ldg(c + u * 2 * (int64_t)d);
 #pragma unroll
   for (int u = 0; u < N; ++u)
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) acc[q] += v[u][q];
+    for (int q = 0; q < VEC; ++q) acc[q] += v[u].get(q);
 }
 
 // the sum of a split row's carries, in share order: its first share
-// s0's slot `slot`, then slot 0 of shares s0+1..s1 (batches of 16, 8,
-// 4, 2, 1 loads issued together); nothing for an empty row (s1 < s0)
+// s0's slot `slot`, then slot 0 of shares s0+1..s1 (batches of 16 (8
+// for 8-wide pieces), 8, 4, 2, 1 loads issued together); nothing for an
+// empty row (s1 < s0)
 template <int VEC>
 __device__ __forceinline__ void sum_carries(float* acc, const float* carry,
                                             int64_t s0, int64_t s1, int slot,
                                             int d, int col) {
+  constexpr int kBig = VEC > 4 ? 8 : 16;
 #pragma unroll
   for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
   if (s1 < s0) return;
-  Vec<VEC>::load(acc, carry + (s0 * 2 + slot) * (int64_t)d + col);
+  rows::load_f32<float, VEC>(acc, carry + (s0 * 2 + slot) * (int64_t)d + col);
   const int64_t step = 2 * (int64_t)d;
   const float* c = carry + (s0 + 1) * step + col;
   int64_t left = s1 - s0;
-  for (; left >= 16; left -= 16, c += 16 * step) add_carries<VEC, 16>(acc, c, d);
+  for (; left >= kBig; left -= kBig, c += kBig * step)
+    add_carries<VEC, kBig>(acc, c, d);
   if (left & 8) { add_carries<VEC, 8>(acc, c, d); c += 8 * step; }
   if (left & 4) { add_carries<VEC, 4>(acc, c, d); c += 4 * step; }
   if (left & 2) { add_carries<VEC, 2>(acc, c, d); c += 2 * step; }
@@ -396,7 +384,7 @@ carry_sum_kernel(const int64_t* __restrict__ rowptr,
       if (col >= d) break;
       float acc[VEC];
       sum_carries<VEC>(acc, carry, s0, s1, slot, d, col);
-      Vec<VEC>::store(out + (base + j) * (int64_t)d + col, acc);
+      rows::store_f32<float, VEC>(out + (base + j) * (int64_t)d + col, acc);
     }
   }
 }
@@ -408,11 +396,12 @@ int lanes_for(int d, int vec) {
   return L;
 }
 
-template <int VEC, int MODE>
-int launch(const float* xp, const int32_t* sp, const float* wp,
+template <typename T, int VEC, int MODE>
+int launch(const void* x, const int32_t* sp, const float* wp,
            const int32_t* dp, const int64_t* rp, float* op, float* cp,
            long long n_rows, long long n_edges, int d, int t, int L,
            int aligned16, cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
   const long long n_shares = (n_edges + t - 1) / t;
   if (n_shares > 0) {
     const long long blocks = (n_shares + kGroups - 1) / kGroups;
@@ -421,8 +410,8 @@ int launch(const float* xp, const int32_t* sp, const float* wp,
       return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          share_sum_kernel<VEC, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+          share_sum_kernel<VEC, MODE, T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
     share_sum_kernel<VEC, MODE><<<(unsigned)blocks, kGroups * L, smem, st>>>(
@@ -439,64 +428,71 @@ int launch(const float* xp, const int32_t* sp, const float* wp,
   return (int)cudaGetLastError();
 }
 
-template <int VEC>
-int launch_mode(int mode, const float* xp, const int32_t* sp,
+template <typename T, int VEC>
+int launch_mode(int mode, const void* xp, const int32_t* sp,
                 const float* wp, const int32_t* dp, const int64_t* rp,
                 float* op, float* cp, long long n_rows, long long n_edges,
                 int d, int t, int L, int aligned16, cudaStream_t st) {
   switch (mode) {
     case kBf16:
-      return launch<VEC, kBf16>(xp, sp, wp, dp, rp, op, cp, n_rows, n_edges,
-                                d, t, L, aligned16, st);
+      return launch<T, VEC, kBf16>(xp, sp, wp, dp, rp, op, cp, n_rows,
+                                   n_edges, d, t, L, aligned16, st);
     case kPacked:
-      return launch<VEC, kPacked>(xp, sp, wp, dp, rp, op, cp, n_rows,
-                                  n_edges, d, t, L, aligned16, st);
+      return launch<T, VEC, kPacked>(xp, sp, wp, dp, rp, op, cp, n_rows,
+                                     n_edges, d, t, L, aligned16, st);
     default:
-      return launch<VEC, kF32>(xp, sp, wp, dp, rp, op, cp, n_rows, n_edges,
-                               d, t, L, aligned16, st);
+      return launch<T, VEC, kF32>(xp, sp, wp, dp, rp, op, cp, n_rows,
+                                  n_edges, d, t, L, aligned16, st);
   }
 }
 
 }  // namespace
 
-// x (n_in, d) f32, src/dst (n_edges,) int32 with dst sorted, w
-// (n_edges,) f32, rowptr (n_rows + 1,) int64 the CSR row pointer of dst,
-// out (n_rows, d) f32, carry (ceil(n_edges / share_edges), 2, d) f32
-// scratch.  vec: the float width of the x/out/carry accesses (1, 2 or
-// 4; d % vec == 0, x aligned to 4 * vec bytes).  mode: 0 f32, 1 bf16,
-// 2 packed (the header).  Launches the share pass and the carry pass on
-// `stream`; returns a cudaError_t.
-extern "C" int segment_spmm_f32(const void* x, const void* src,
-                                const void* w, const void* dst,
-                                const void* rowptr, void* out, void* carry,
-                                long long n_rows, long long n_edges, int d,
-                                int vec, int share_edges, int mode,
-                                void* stream) {
-  if (n_rows < 0 || n_edges < 0 || d <= 0 || share_edges <= 0 ||
-      (vec != 1 && vec != 2 && vec != 4) || d % vec != 0 || mode < kF32 ||
-      mode > kPacked)
+// x (n_in, d) f32 (bf16 == 0) or bf16 (bf16 == 1), src/dst (n_edges,)
+// int32 with dst sorted, w (n_edges,) f32, rowptr (n_rows + 1,) int64
+// the CSR row pointer of dst, out (n_rows, d) f32, carry
+// (ceil(n_edges / share_edges), 2, d) f32 scratch.  vec: the elements of
+// each x/out/carry access (f32: 1, 2 or 4; bf16: 1, 2, 4 or 8; d % vec
+// == 0, x aligned to vec elements, out to vec floats).  mode: 0 f32, 1
+// bf16, 2 packed (the header).  Launches the share pass and the carry
+// pass on `stream`; returns a cudaError_t.
+extern "C" int segment_spmm_launch(const void* x, const void* src,
+                                   const void* w, const void* dst,
+                                   const void* rowptr, void* out, void* carry,
+                                   long long n_rows, long long n_edges, int d,
+                                   int vec, int share_edges, int mode,
+                                   int bf16, void* stream) {
+  const int max_vec = bf16 ? 8 : 4;
+  if (n_rows < 0 || n_edges < 0 || d <= 0 || share_edges <= 0 || vec < 1 ||
+      vec > max_vec || (vec & (vec - 1)) != 0 || d % vec != 0 ||
+      mode < kF32 || mode > kPacked || (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
   const int L = lanes_for(d, vec);
   const int aligned16 =
       (((uintptr_t)src | (uintptr_t)w | (uintptr_t)dst) & 15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x);
   const int32_t* sp = static_cast<const int32_t*>(src);
   const float* wp = static_cast<const float*>(w);
   const int32_t* dp = static_cast<const int32_t*>(dst);
   const int64_t* rp = static_cast<const int64_t*>(rowptr);
   float* op = static_cast<float*>(out);
   float* cp = static_cast<float*>(carry);
-  switch (vec) {
-    case 4:
-      return launch_mode<4>(mode, xp, sp, wp, dp, rp, op, cp, n_rows,
-                            n_edges, d, share_edges, L, aligned16, st);
-    case 2:
-      return launch_mode<2>(mode, xp, sp, wp, dp, rp, op, cp, n_rows,
-                            n_edges, d, share_edges, L, aligned16, st);
-    default:
-      return launch_mode<1>(mode, xp, sp, wp, dp, rp, op, cp, n_rows,
-                            n_edges, d, share_edges, L, aligned16, st);
+#define SEG_LAUNCH(T, V)                                                  \
+  launch_mode<T, V>(mode, x, sp, wp, dp, rp, op, cp, n_rows, n_edges, d, \
+                    share_edges, L, aligned16, st)
+  if (bf16) {
+    switch (vec) {
+      case 8: return SEG_LAUNCH(__nv_bfloat16, 8);
+      case 4: return SEG_LAUNCH(__nv_bfloat16, 4);
+      case 2: return SEG_LAUNCH(__nv_bfloat16, 2);
+      default: return SEG_LAUNCH(__nv_bfloat16, 1);
+    }
   }
+  switch (vec) {
+    case 4: return SEG_LAUNCH(float, 4);
+    case 2: return SEG_LAUNCH(float, 2);
+    default: return SEG_LAUNCH(float, 1);
+  }
+#undef SEG_LAUNCH
 }

@@ -75,6 +75,23 @@
 // aligned, cp.async copies the slab instead (16-byte pieces where
 // aligned).  __syncwarp orders a stage's reads before its refill.
 //
+// bf16 messages (activation_dtype: bfloat16; the xla path's x[src] *
+// w.astype(bf16) and bf16 segment_sum), mode 0 with the edge weight
+// only: the term of message element m is bf16(bf16(w) * m) (the weight
+// rounded to bf16, the product rounded to bf16, as the JAX composition
+// forms it), summed in f32; each output element is rounded to bf16
+// once (out = bf16(sum), or bf16(out + sum) when accumulating).  A
+// simple schedule of its own, on the same equal edge shares: one lane
+// group per share (L lanes of VEC bf16 values, 16-byte loads of 8 where
+// the row allows) reads its messages, dst and weights from global
+// memory with kUnroll rows in flight, no staging; a row inside one
+// share is written by it, the partial sums of a row that crosses a
+// share boundary go to the share's carry slot 0 (its first row) or 1
+// (its last row) in an f32 workspace of n_shares x 2 x D, and the
+// carry pass above (with shares of T edges) sums them in share order
+// into the bf16 output.  The other modes and stream mode take f32
+// messages only.
+//
 // Stream mode keeps its per-block definition and layout: one CTA per
 // block stages the covered chunks through shared memory in kStageBytes
 // tiles with cp.async, double-buffered, and adds the placeholder rows
@@ -95,6 +112,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -267,6 +286,23 @@ __device__ __forceinline__ void put(float* o, const float* acc, bool add) {
   } else {
     Vec<VEC>::store(o, acc);
   }
+}
+
+// put() for an output of element type T: the sum narrowed to T once,
+// after out's value is added when accumulating
+template <typename T, int VEC>
+__device__ __forceinline__ void put_t(T* o, const float* acc, bool add) {
+  float v[VEC];
+  if (add) {
+    rows::Piece<T, VEC> old;
+    old.ld(o);
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) v[q] = old.get(q) + acc[q];
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) v[q] = acc[q];
+  }
+  rows::store_f32<T, VEC>(o, v);
 }
 
 // The share pass: warp s of the grid sums share s, and block c combines
@@ -530,13 +566,13 @@ share_sum_kernel(const float* __restrict__ msgs,
 template <int VEC, int N>
 __device__ __forceinline__ void add_carries(float* acc, const float* c,
                                             int d) {
-  float v[N][VEC];
+  rows::Piece<float, VEC> v[N];
 #pragma unroll
-  for (int u = 0; u < N; ++u) Vec<VEC>::load(v[u], c + u * 2 * (int64_t)d);
+  for (int u = 0; u < N; ++u) v[u].ld(c + u * 2 * (int64_t)d);
 #pragma unroll
   for (int u = 0; u < N; ++u)
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) acc[q] += v[u][q];
+    for (int q = 0; q < VEC; ++q) acc[q] += v[u].get(q);
 }
 
 // the sum of a split row's carries, in share order: its first share
@@ -546,15 +582,18 @@ template <int VEC>
 __device__ __forceinline__ void sum_carries(float* acc, const float* carry,
                                             int64_t s0, int64_t s1, int slot,
                                             int d, int col) {
+  constexpr int kBig = VEC > 4 ? 8 : 16;  // 8 for 8-wide pieces
 #pragma unroll
   for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
   if (s1 < s0) return;
-  Vec<VEC>::load(acc, carry + (s0 * 2 + slot) * (int64_t)d + col);
+  rows::Piece<float, VEC> first;
+  first.ld(carry + (s0 * 2 + slot) * (int64_t)d + col);
+  first.get_all(acc);
   const int64_t step = 2 * (int64_t)d;
   const float* c = carry + (s0 + 1) * step + col;
   int64_t left = s1 - s0;
-  for (; left >= 16; left -= 16, c += 16 * step)
-    add_carries<VEC, 16>(acc, c, d);
+  for (; left >= kBig; left -= kBig, c += kBig * step)
+    add_carries<VEC, kBig>(acc, c, d);
   if (left & 8) { add_carries<VEC, 8>(acc, c, d); c += 8 * step; }
   if (left & 4) { add_carries<VEC, 4>(acc, c, d); c += 4 * step; }
   if (left & 2) { add_carries<VEC, 2>(acc, c, d); c += 2 * step; }
@@ -568,11 +607,11 @@ __device__ __forceinline__ void sum_carries(float* acc, const float* carry,
 // if it also holds edge s*t - 1 and s is the first boundary it crosses,
 // gets the sum of its carries in share order (added to out when
 // accumulating).  Rows inside one share were written by the share pass.
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kFixThreads)
 carry_sum_kernel(const int32_t* __restrict__ dst,
                  const int64_t* __restrict__ rowptr,
-                 const float* __restrict__ carry, float* __restrict__ out,
+                 const float* __restrict__ carry, T* __restrict__ out,
                  int64_t n_rows, int64_t n_edges, int d, int t, int L,
                  int zero_blocks, int accumulate) {
   const int64_t lo = min64(rowptr[0], n_edges);
@@ -591,7 +630,7 @@ carry_sum_kernel(const int32_t* __restrict__ dst,
       const int j = __ffs(todo) - 1;
       todo &= todo - 1;
       for (int col = lane * VEC; col < d; col += 32 * VEC)
-        Vec<VEC>::store(out + (base + j) * (int64_t)d + col, zero);
+        rows::store_f32<T, VEC>(out + (base + j) * (int64_t)d + col, zero);
     }
     return;
   }
@@ -612,7 +651,83 @@ carry_sum_kernel(const int32_t* __restrict__ dst,
     if (col >= d) break;
     float acc[VEC];
     sum_carries<VEC>(acc, carry, s0, (b1 - 1) / t, slot, d, col);
-    put<VEC>(out + r * d + col, acc, accumulate);
+    put_t<T, VEC>(out + r * d + col, acc, accumulate);
+  }
+}
+
+// The share pass of bf16 messages with an edge weight (see the header):
+// lane group g of the grid sums share g of t edges.
+template <int VEC>
+__global__ void __launch_bounds__(kFixThreads)
+share_sum_bf16w_kernel(const __nv_bfloat16* __restrict__ msgs,
+                       const int32_t* __restrict__ dst,
+                       const float* __restrict__ w,
+                       const int64_t* __restrict__ rowptr,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ carry, int64_t n_rows,
+                       int64_t n_edges, int d, int t, int L, int accumulate) {
+  constexpr int kUnroll = 8;  // message rows in flight per lane group
+  const int64_t s = ((int64_t)blockIdx.x * kFixThreads + threadIdx.x) / L;
+  const int sub = threadIdx.x % L;
+  const int64_t lo = min64(rowptr[0], n_edges);
+  const int64_t hi = min64(rowptr[n_rows], n_edges);
+  const int64_t a = max64(s * t, lo);
+  const int64_t b = min64((s + 1) * t, hi);
+  if (a >= b) return;  // group-uniform; no shuffles below
+  // dst[e] is edge e's row for e in [lo, hi): the share's first and last
+  // rows, and whether each continues in the share before or after
+  const int64_t first = dst[a];
+  const int64_t last = dst[b - 1];
+  const bool first_split = (a > lo && dst[a - 1] == first) ||
+                           (b < hi && dst[b] == first);
+  const bool last_split = b < hi && dst[b] == last;
+  float* const slot0 = carry + (s * 2) * (int64_t)d;
+  float* const slot1 = slot0 + d;
+  for (int c0 = 0; c0 < d; c0 += L * VEC) {
+    const int col = c0 + sub * VEC;
+    const bool active = col < d;  // d % VEC == 0: the whole piece is in
+    float acc[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+    int64_t cur = first;
+    // a finished row: its carry slot, or out (bf16, rounded once)
+    auto flush = [&](int64_t row) {
+      if (!active) return;
+      if (row == first && first_split)
+        rows::store_f32<float, VEC>(slot0 + col, acc);
+      else if (row == last && last_split)
+        rows::store_f32<float, VEC>(slot1 + col, acc);
+      else
+        put_t<__nv_bfloat16, VEC>(out + row * d + col, acc, accumulate);
+    };
+    for (int64_t e0 = a; e0 < b; e0 += kUnroll) {
+      const int n_here = (int)min64(kUnroll, b - e0);
+      rows::Piece<__nv_bfloat16, VEC> v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (active && u < n_here)
+          v[u].ldg(msgs + (e0 + u) * d + col);
+        else
+          v[u].zero();
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (u < n_here) {
+          const int64_t r = __ldg(dst + e0 + u);
+          if (r != cur) {  // row cur is complete
+            flush(cur);
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+            cur = r;
+          }
+          const float we = rows::bf16_rn(__ldg(w + e0 + u));
+#pragma unroll
+          for (int q = 0; q < VEC; ++q)
+            acc[q] += rows::bf16_rn(__fmul_rn(we, v[u].get(q)));
+        }
+      }
+    }
+    flush(cur);
   }
 }
 
@@ -714,9 +829,9 @@ int launch_stream(const float* m, const int32_t* dp, const int64_t* rp,
   return (int)cudaGetLastError();
 }
 
-template <int VEC>
+template <typename T, int VEC>
 int launch_carry_vec(const int32_t* dp, const int64_t* rp, const float* cp,
-                     float* op, long long n_rows, long long n_edges, int d,
+                     T* op, long long n_rows, long long n_edges, int d,
                      int t, long long n_shares, int accumulate,
                      cudaStream_t st) {
   const int L = lanes_for(d, VEC);
@@ -729,7 +844,7 @@ int launch_carry_vec(const int32_t* dp, const int64_t* rp, const float* cp,
   const long long blocks = zero_blocks + bound_blocks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (blocks == 0) return (int)cudaSuccess;
-  carry_sum_kernel<VEC><<<(unsigned)blocks, kFixThreads, 0, st>>>(
+  carry_sum_kernel<T, VEC><<<(unsigned)blocks, kFixThreads, 0, st>>>(
       dp, rp, cp, op, n_rows, n_edges, d, t, L, (int)zero_blocks,
       accumulate);
   return (int)cudaGetLastError();
@@ -741,13 +856,35 @@ int launch_carry(const int32_t* dp, const int64_t* rp, const float* cp,
                  long long n_shares, int accumulate, cudaStream_t st) {
   const uintptr_t o = (uintptr_t)op;
   if (d % 4 == 0 && o % 16 == 0)
-    return launch_carry_vec<4>(dp, rp, cp, op, n_rows, n_edges, d, t,
-                               n_shares, accumulate, st);
+    return launch_carry_vec<float, 4>(dp, rp, cp, op, n_rows, n_edges, d, t,
+                                      n_shares, accumulate, st);
   if (d % 2 == 0 && o % 8 == 0)
-    return launch_carry_vec<2>(dp, rp, cp, op, n_rows, n_edges, d, t,
-                               n_shares, accumulate, st);
-  return launch_carry_vec<1>(dp, rp, cp, op, n_rows, n_edges, d, t, n_shares,
-                             accumulate, st);
+    return launch_carry_vec<float, 2>(dp, rp, cp, op, n_rows, n_edges, d, t,
+                                      n_shares, accumulate, st);
+  return launch_carry_vec<float, 1>(dp, rp, cp, op, n_rows, n_edges, d, t,
+                                    n_shares, accumulate, st);
+}
+
+// bf16 messages with a weight: the share pass (one lane group per share
+// of t edges) and the carry pass over its per-share carries
+template <int VEC>
+int launch_bf16w(const __nv_bfloat16* m, const int32_t* dp, const float* wp,
+                 const int64_t* rp, __nv_bfloat16* op, float* cp,
+                 long long n_rows, long long n_edges, int d, int t,
+                 int accumulate, cudaStream_t st) {
+  const int L = lanes_for(d, VEC);
+  const long long n_shares = (n_edges + t - 1) / t;
+  const long long per_block = kFixThreads / L;
+  const long long blocks = (n_shares + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks > 0) {
+    share_sum_bf16w_kernel<VEC><<<(unsigned)blocks, kFixThreads, 0, st>>>(
+        m, dp, wp, rp, op, cp, n_rows, n_edges, d, t, L, accumulate);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_carry_vec<__nv_bfloat16, VEC>(
+      dp, rp, cp, op, n_rows, n_edges, d, t, n_shares, accumulate, st);
 }
 
 // the share pass's layout for d-float rows: R edges per slab, one
@@ -827,12 +964,14 @@ int launch_mode(int mode, const float* m, const int32_t* dp, const float* wp,
 
 // Rows of the carry workspace of modes 0-2: one slot pair per block of
 // the share pass's grid over n_edges d-float rows in shares of
-// share_edges (with an edge weight or not); -1 where the launch would
-// refuse the shape.
+// share_edges (with an edge weight or not), or, for bf16 messages, per
+// share; -1 where the launch would refuse the shape.
 extern "C" long long block_segment_sum_carry_rows(long long n_edges, int d,
                                                   int weighted,
-                                                  int share_edges) {
+                                                  int share_edges, int bf16) {
   if (n_edges < 0 || d <= 0 || share_edges <= 0) return -1;
+  // bf16 messages: one slot pair per share
+  if (bf16) return (n_edges + share_edges - 1) / share_edges;
   const ShareLayout l = share_layout(d, weighted != 0);
   if (l.warps < 1) return -1;
   const long long tc = (long long)l.warps * share_edges;
@@ -842,20 +981,47 @@ extern "C" long long block_segment_sum_carry_rows(long long n_edges, int d,
 // msgs (n_edges, d) f32, dst (n_edges,) int32 sorted, rowptr (n_rows + 1,)
 // int64 its CSR row pointer, weight (n_edges,) f32 or null (mode 0
 // only), out (n_rows, d) f32.  Modes 0-2: carry
-// (block_segment_sum_carry_rows(n_edges, d, weight != null, share_edges),
-// 2, d) f32 scratch; vec: the floats per lane of the
+// (block_segment_sum_carry_rows(n_edges, d, weight != null, share_edges,
+// bf16), 2, d) f32 scratch; vec: the floats per lane of the
 // shared-memory reads and of the out/carry stores (1, 2 or 4; d % vec
 // == 0, out aligned to 4 * vec bytes).  Launches the share
 // pass and the carry pass on `stream`.  Mode 3 (stream): bm-row blocks,
 // ec-edge chunks, n_edges % ec == 0, msgs 16-byte aligned; carry, vec
-// and share_edges unused.  Returns a cudaError_t.
-extern "C" int block_segment_sum_f32(const void* msgs, const void* dst,
-                                     const void* rowptr, const void* weight,
-                                     void* out, void* carry,
-                                     long long n_rows, long long n_edges,
-                                     int d, int vec, int mode, int bm, int ec,
-                                     int share_edges, int accumulate,
-                                     void* stream) {
+// and share_edges unused.  bf16 == 1: msgs and out bf16, mode 0 with a
+// weight only, vec the bf16 values per lane (1, 2, 4 or 8; msgs and out
+// aligned to vec values).  Returns a cudaError_t.
+extern "C" int block_segment_sum_launch(const void* msgs, const void* dst,
+                                        const void* rowptr,
+                                        const void* weight, void* out,
+                                        void* carry, long long n_rows,
+                                        long long n_edges, int d, int vec,
+                                        int mode, int bm, int ec,
+                                        int share_edges, int accumulate,
+                                        int bf16, void* stream) {
+  if (bf16) {
+    if (n_rows < 0 || n_edges < 0 || d <= 0 || mode != kF32 ||
+        weight == nullptr || share_edges <= 0 || vec < 1 || vec > 8 ||
+        (vec & (vec - 1)) != 0 || d % vec != 0)
+      return (int)cudaErrorInvalidValue;
+    if (n_rows == 0) return (int)cudaSuccess;
+    const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(msgs);
+    const int32_t* dp = static_cast<const int32_t*>(dst);
+    const float* wp = static_cast<const float*>(weight);
+    const int64_t* rp = static_cast<const int64_t*>(rowptr);
+    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
+    float* cp = static_cast<float*>(carry);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BF16W(V)                                                        \
+  launch_bf16w<V>(m, dp, wp, rp, op, cp, n_rows, n_edges, d, share_edges, \
+                  accumulate, st)
+    switch (vec) {
+      case 8: return BF16W(8);
+      case 4: return BF16W(4);
+      case 2: return BF16W(2);
+      default: return BF16W(1);
+    }
+#undef BF16W
+  }
   if (n_rows < 0 || n_edges < 0 || d <= 0 || mode < kF32 ||
       mode > kStream || (weight != nullptr && mode != kF32))
     return (int)cudaErrorInvalidValue;

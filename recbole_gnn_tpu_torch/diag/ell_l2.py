@@ -71,21 +71,16 @@ VARIANTS: dict[str, list[tuple[str, str]]] = {
     "no_stream_hints": [
         ("    int32_t ci = sub < n ? __ldcs(idx + a + sub) : 0;",
          "    int32_t ci = sub < n ? __ldg(idx + a + sub) : 0;"),
-        ("    float cw = sub < n ? __ldcs(w + a + sub) : 0.f;",
-         "    float cw = sub < n ? __ldg(w + a + sub) : 0.f;"),
+        ("slot_weight<T>(__ldcs(w + a + sub))",
+         "slot_weight<T>(__ldg(w + a + sub))"),
         ("      const int32_t ni = nx < n ? __ldcs(idx + a + nx) : 0;",
          "      const int32_t ni = nx < n ? __ldg(idx + a + nx) : 0;"),
-        ("      const float nw = nx < n ? __ldcs(w + a + nx) : 0.f;",
-         "      const float nw = nx < n ? __ldg(w + a + nx) : 0.f;"),
+        ("slot_weight<T>(__ldcs(w + a + nx))",
+         "slot_weight<T>(__ldg(w + a + nx))"),
         ("              const int t = __ldcs(rdst + row);",
          "              const int t = __ldg(rdst + row);"),
-        ("{ __stcs(p, a[0]); }", "{ p[0] = a[0]; }"),
-        ("    __stcs(reinterpret_cast<float2*>(p), make_float2(a[0], a[1]));",
-         "    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);"),
-        ("    __stcs(reinterpret_cast<float4*>(p),\n"
-         "           make_float4(a[0], a[1], a[2], a[3]));",
-         "    *reinterpret_cast<float4*>(p) = "
-         "make_float4(a[0], a[1], a[2], a[3]);")],
+        ("constexpr bool kStreamStores = true;",
+         "constexpr bool kStreamStores = false;")],
     # the combine pass with 4 workspace rows in flight, not 16
     "combine4": [("constexpr int kCombineUnroll = 16;",
                   "constexpr int kCombineUnroll = 4;")],
@@ -162,9 +157,10 @@ def print_ptxas(name: str, log: str):
     """Registers and spills of each kernel in an ``-Xptxas=-v`` log."""
     fn = "?"
     for line in log.splitlines():
-        m = re.search(r"entry function '\w*?(ell_\w+?_kernel)ILi(\d)E", line)
+        m = re.search(r"entry function '\w*?(ell_\w+?_kernel)I(\w+?)Li(\d)E",
+                      line)
         if m:
-            fn = f"{m.group(1)}<{m.group(2)}>"
+            fn = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
         elif "registers" in line or "spill" in line:
             print(f"  {name} {fn}: {line.split(':', 1)[-1].strip()}",
                   flush=True)

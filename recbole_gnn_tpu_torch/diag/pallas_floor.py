@@ -56,12 +56,12 @@ def work(msgs: torch.Tensor, rowptr: torch.Tensor,
          weighted: bool = False) -> tuple[int, int]:
     """(bytes, flops) one sum must move and do: the message stream, dst
     (and, ``weighted``, the f32 edge weight) and the row pointer read
-    once, the output written once; one add per message element (and a
-    product, weighted)."""
+    once, the output (of the messages' type) written once; one add per
+    message element (and a product, weighted)."""
     e, d = msgs.shape
-    n = rowptr.shape[0] - 1
-    n_bytes = e * d * 4 + e * 4 * (2 if weighted else 1) + (n + 1) * 8 \
-        + n * d * 4
+    n, size = rowptr.shape[0] - 1, msgs.element_size()
+    n_bytes = e * d * size + e * 4 * (2 if weighted else 1) + (n + 1) * 8 \
+        + n * d * size
     return n_bytes, e * d * (2 if weighted else 1)
 
 

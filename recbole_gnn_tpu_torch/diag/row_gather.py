@@ -41,10 +41,11 @@ def make_inputs(device, n: int = N, e: int = E, d: int = D,
 def work(x: torch.Tensor, idx: torch.Tensor) -> tuple[int, int]:
     """(bytes, flops) one gather must move and do: each distinct table
     row this index names read once, the index read once, the output
-    written once; no arithmetic."""
-    d = x.shape[1]
+    written once (rows of x's element size); no arithmetic."""
+    d, size = x.shape[1], x.element_size()
     distinct = int(torch.unique(idx).numel())
-    return distinct * d * 4 + idx.shape[0] * 4 + idx.shape[0] * d * 4, 0
+    return (distinct * d * size + idx.shape[0] * 4
+            + idx.shape[0] * d * size), 0
 
 
 def run(device: str = "cuda", n: int = N, e: int = E, d: int = D,

@@ -5,7 +5,10 @@ and two augmented views of the graph, rebuilt every epoch in
 ``epoch_start``; augmentation ND (node drop), ED (edge drop) or RW
 (an edge drop per layer), each view re-normalised over its kept edges;
 sum-reduced BPR + EmbLoss + InfoNCE of the batch's users and positive
-items against every node of view 2.  A training step runs three
+items against every node of view 2.  With ``activation_dtype:
+bfloat16`` the propagations start from a bf16 copy of the embeddings
+and keep the dtype each SpMM gives (``ops/spmm.py``), and the layer
+mean is taken in f32.  A training step runs three
 propagations (the graph and both views), each ``n_layers`` SpMMs
 forward and as many transpose SpMMs back: 9 and 9 at 3 layers.
 
@@ -66,10 +69,13 @@ class SGL(GeneralGraphRecommender):
         self.ssl_weight = float(config.get("ssl_weight", 0.05))
         if self.aug_type not in ("ND", "ED", "RW"):
             raise ValueError(f"unknown SGL aug type {self.aug_type!r}")
-        if str(config.or_default("activation_dtype", "")).startswith("bf"):
-            raise NotImplementedError(
-                "SGL activation_dtype: bfloat16 is not ported; the port's "
-                "SpMM kernels take f32")
+        # activation_dtype: bfloat16 — the three propagations run on a
+        # bf16 input (as the JAX package: each impl keeps the dtype its
+        # SpMM gives: bf16 on ell and xla, f32 on pallas on the card and
+        # on the dense form); the layer mean, losses, params and
+        # optimizer stay f32
+        self.act_dtype = (torch.bfloat16 if str(config.or_default(
+            "activation_dtype", "")).startswith("bf") else None)
         users, items = dataset.user_item_arrays()
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device)
@@ -184,11 +190,14 @@ class SGL(GeneralGraphRecommender):
 
     def _propagate_layers(self, params, layer_graphs):
         x = torch.cat([params["user_emb"], params["item_emb"]], dim=0)
+        if self.act_dtype is not None:
+            x = x.to(self.act_dtype)
         outs = [x]
         for g in layer_graphs:
             x = g(x)
             outs.append(x)
-        final = torch.stack(outs, dim=0).mean(dim=0)
+        # each layer widened to f32 before the mean
+        final = torch.stack([o.float() for o in outs], dim=0).mean(dim=0)
         return final[:self.n_users], final[self.n_users:]
 
     def _forward_base(self, params, consts):

@@ -13,7 +13,10 @@ JAX package unrolls K ≤ 8 and scans above; both compute this loop.
 
 BatchNorm is masked: biased statistics over the valid nodes (the
 single PAD node of a short session included), leaving out the rows of
-weight 0; ``bn_sr`` takes its statistics over the w > 0 rows.  No
+weight 0; ``bn_sr`` takes its statistics over the w > 0 rows.  Under
+data parallelism the statistics are the global batch's, as the JAX
+package's one program over the mesh takes them: the counts and sums
+go through ``parallel.comm.batch_sum`` inside autograd.  No
 running statistics: ``serving_calibrate`` freezes population
 statistics from a sample batch, which eval-mode scores then use.
 
@@ -42,6 +45,7 @@ from recbole_gnn_tpu_torch.models.layers import (KeepStream, gru_params,
 from recbole_gnn_tpu_torch.models.losses import cross_entropy
 from recbole_gnn_tpu_torch.models.sequential.common import (
     edge_masks, embed, gather_slots)
+from recbole_gnn_tpu_torch.parallel.comm import batch_reducing, batch_sum
 
 
 def _prelu(alpha, x):
@@ -50,11 +54,11 @@ def _prelu(alpha, x):
 
 def _masked_stats(x, mask):
     """Masked per-feature (mu, biased var) over the valid nodes of a
-    (B, L, D) x."""
+    (B, L, D) x, over the global batch when it is spread over ranks."""
     m = mask[:, :, None].to(x.dtype)
-    cnt = m.sum().clamp_min(1.0)
-    mu = (x * m).sum((0, 1)) / cnt
-    var = (((x - mu) ** 2) * m).sum((0, 1)) / cnt
+    cnt = batch_sum(m.sum()).clamp_min(1.0)
+    mu = batch_sum((x * m).sum((0, 1))) / cnt
+    var = batch_sum((((x - mu) ** 2) * m).sum((0, 1))) / cnt
     return mu, var
 
 
@@ -251,12 +255,13 @@ class LESSR(SequentialRecommender):
         sr = torch.cat([sr_l, sr_g], dim=-1)
         if self.batch_norm:
             def row_stats():
-                if w is None:
+                if w is None and not batch_reducing():
                     return sr.mean(0), sr.var(0, correction=0)
-                ww = (w > 0).to(sr.dtype)[:, None]
-                cnt = ww.sum().clamp_min(1.0)
-                mu_ = (sr * ww).sum(0) / cnt
-                return mu_, (((sr - mu_) ** 2) * ww).sum(0) / cnt
+                ww = (sr.new_ones(sr.shape[0]) if w is None
+                      else (w > 0).to(sr.dtype))[:, None]
+                cnt = batch_sum(ww.sum()).clamp_min(1.0)
+                mu_ = batch_sum((sr * ww).sum(0)) / cnt
+                return mu_, batch_sum((((sr - mu_) ** 2) * ww).sum(0)) / cnt
 
             mu, var = sites.take(row_stats)
             sr = ((sr - mu) * torch.rsqrt(var + 1e-5) * params["bn_sr"]["g"]

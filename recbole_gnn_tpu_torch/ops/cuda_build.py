@@ -9,8 +9,10 @@ when a module is imported: the first launch builds, or a caller asks
 ahead with :func:`build`, which starts one ``nvcc`` per source at once.
 
 The kernel wrappers share the launch contract's checks here:
-:func:`check_tensors` (device, dtype, rank, contiguity) and
-:func:`vec_width` (the widest vector load a row layout allows).
+:func:`check_tensors` (device, dtype, rank, contiguity),
+:func:`check_row_dtype` (f32 or bf16 rows) and
+:func:`vec_width` (the widest vector load a row layout allows, in
+elements of the row's type).
 """
 
 from __future__ import annotations
@@ -49,9 +51,16 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<name>.cu`` lives: named by a
+    hash of the source, the headers of ``csrc/`` it may include and the
+    flags."""
+    digest = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(
+            os.path.join(CSRC_DIR, h) for h in os.listdir(CSRC_DIR)
+            if h.endswith(".cuh")):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -99,6 +108,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+# the element types of the rows the kernels read (x, messages) and write
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_row_dtype(who: str, name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` holds f32 or bf16 rows, the two types every
+    kernel reads itself."""
+    if t.dtype not in ROW_DTYPES:
+        raise TypeError(f"{who}: {name} must be one of {ROW_DTYPES}, got "
+                        f"{t.dtype}")
+
+
 def check_tensors(who: str, device: torch.device, specs) -> None:
     """Raise unless each ``(name, tensor, dtype, ndim)`` of ``specs`` lies
     on ``device`` with that dtype and rank, contiguous — what a kernel
@@ -117,10 +138,12 @@ def check_tensors(who: str, device: torch.device, specs) -> None:
 
 
 def vec_width(x: torch.Tensor) -> int:
-    """Widest vector load (floats) that every row of the 2-D ``x``
-    allows: 4 or 2 where the width and the address are aligned, else 1."""
-    d, ptr = x.shape[1], x.data_ptr()
-    for vec in (4, 2):
-        if d % vec == 0 and ptr % (4 * vec) == 0:
-            return vec
-    return 1
+    """Widest vector load, in elements of ``x``'s type, that every row of
+    the 2-D ``x`` allows: the most elements that fill at most 16 bytes
+    (4 f32, 8 bf16) and divide the row width, where the address is
+    aligned to their bytes; narrower where it is not, down to 1."""
+    d, ptr, size = x.shape[1], x.data_ptr(), x.element_size()
+    vec = 16 // size
+    while vec > 1 and (d % vec or ptr % (size * vec)):
+        vec //= 2
+    return vec

@@ -349,7 +349,12 @@ def ell_spmm_plain(meta: EllMeta, x: torch.Tensor) -> torch.Tensor:
     """The plain version, as the JAX package's ``ell_spmm``: per bucket
     an ``index_select`` and an ``einsum`` over the slot axis
     (:func:`bucket_gather_sum`), the split nodes' virtual rows summed by
-    ``index_add_``, then one gather through ``node_src``."""
+    ``index_add_``, then one gather through ``node_src``.  A bf16 ``x``
+    gives a bf16 output: its terms are the exact f32 products of x and
+    the slot weights rounded to bf16 (``w.astype(x.dtype)``), summed in
+    f32 and rounded once (:func:`_bf16_as_f32`)."""
+    if x.dtype == torch.bfloat16:
+        return _bf16_as_f32(ell_spmm_plain, meta, x)
     d = x.shape[-1]
     outs = [bucket_gather_sum(x, idx, w, d)
             for idx, w in zip(meta.idxs, meta.ws)]
@@ -363,6 +368,15 @@ def ell_spmm_plain(meta: EllMeta, x: torch.Tensor) -> torch.Tensor:
         pool = [vr, msums]
     pool = pool + [x.new_zeros((1, d))]
     return torch.cat(pool, dim=0).index_select(0, meta.node_src)
+
+
+def _bf16_as_f32(plain, meta: EllMeta, x: torch.Tensor) -> torch.Tensor:
+    """``plain`` on a bf16 ``x`` as the kernel computes it: x widened to
+    f32 (exact), the slot weights rounded to bf16, the f32 result
+    rounded to bf16 once."""
+    w = meta.w.to(torch.bfloat16).to(torch.float32)
+    return plain(replace(meta, w=w, launch=None),
+                 x.to(torch.float32)).to(torch.bfloat16)
 
 
 def bucket_gather_sum(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -393,7 +407,10 @@ def ell_spmm_pad_free_plain(meta: EllMeta, x: torch.Tensor
     adds ``0 · x[0]`` once (0 for a finite ``x[0]``, NaN where it is
     not, as the einsum over every slot gives); each virtual row goes
     where ``vdst`` says, and the combine plan sums a split node's
-    workspace rows in row order and writes 0 for an isolated node."""
+    workspace rows in row order and writes 0 for an isolated node.  A
+    bf16 ``x`` as in :func:`ell_spmm_plain`."""
+    if x.dtype == torch.bfloat16:
+        return _bf16_as_f32(ell_spmm_pad_free_plain, meta, x)
     d = x.shape[-1]
     out = x.new_zeros((meta.n_nodes, d))
     if not meta.ks:
@@ -463,11 +480,13 @@ def ell_spmm(meta: EllMeta, x: torch.Tensor) -> torch.Tensor:
     """out[d] = Σ_{e: dst[e]=d} w[e]·x[src[e]] over the layout →
     (meta.n_nodes, D).
 
-    A CUDA ``x`` launches the kernel (f32 ``x`` contiguous on the
-    layout's card; any other input raises): a row pass over every
-    bucket and, when the layout has split or isolated nodes, a combine
-    pass, over a workspace of one D-float row per virtual row of a
-    split node.  A CPU ``x`` runs :func:`ell_spmm_plain`.
+    A CUDA ``x`` launches the kernel (f32 or bf16 ``x`` contiguous on
+    the layout's card, read as it is; any other input raises): a row
+    pass over every bucket and, when the layout has split or isolated
+    nodes, a combine pass, over an f32 workspace of one D-wide row per
+    virtual row of a split node.  The output has x's dtype; a bf16 x's
+    terms use the slot weights rounded to bf16 and are summed in f32
+    (:func:`ell_spmm_plain`).  A CPU ``x`` runs :func:`ell_spmm_plain`.
     ``ell_spmm.launches`` counts kernel launches."""
     if x.device.type == "cpu":
         return ell_spmm_plain(meta, x)
@@ -497,16 +516,16 @@ ell_spmm_transpose.launches = 0
 
 
 def _ell_spmm_cuda(meta: EllMeta, x: torch.Tensor) -> torch.Tensor:
+    cuda_build.check_row_dtype("ell_spmm", "x", x)
     cuda_build.check_tensors("ell_spmm", x.device,
-                             (("x", x, torch.float32, 2),))
+                             (("x", x, x.dtype, 2),))
     if x.shape[0] < meta.n_in:
         raise ValueError(f"ell_spmm: the layout reads {meta.n_in} rows of x, "
                          f"x has {x.shape[0]}")
     idx, w, vdst, rest_node, rest_start, rest_count, n_rest, ks, rows, nb = \
         _layout_args(meta, x.device)
     d = x.shape[1]
-    out = torch.empty((meta.n_nodes, d), dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty((meta.n_nodes, d), dtype=x.dtype, device=x.device)
     if meta.n_nodes == 0 or d == 0:
         return out
     # the split nodes' rows; the kernel writes none when there are none
@@ -515,11 +534,11 @@ def _ell_spmm_cuda(meta: EllMeta, x: torch.Tensor) -> torch.Tensor:
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ell_spmm_f32(
+        rc = lib.ell_spmm_launch(
             x.data_ptr(), idx, w, vdst, out.data_ptr(),
             None if ws is None else ws.data_ptr(), rest_node, rest_start,
             rest_count, n_rest, ks, rows, nb, d, cuda_build.vec_width(x),
-            stream)
+            int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"ell_spmm launch failed: CUDA error {rc}")
     return out
@@ -527,11 +546,11 @@ def _ell_spmm_cuda(meta: EllMeta, x: torch.Tensor) -> torch.Tensor:
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("ell_spmm")
-    fn = lib.ell_spmm_f32
+    fn = lib.ell_spmm_launch
     if fn.argtypes is None:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         llp = ctypes.POINTER(ctypes.c_longlong)
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, llp, llp, i,
-                       i, i, vp]
+                       i, i, i, vp]
         fn.restype = ctypes.c_int
     return lib

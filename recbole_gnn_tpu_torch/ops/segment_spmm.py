@@ -25,7 +25,10 @@ padding contract.
 
 ``segment_spmm`` launches the kernel for CUDA tensors and runs the
 plain version, :func:`spmm_coo` (or, in the ``bf16`` and ``packed``
-precisions, :func:`segment_spmm_plain`), for CPU tensors only.  It is
+precisions, :func:`segment_spmm_plain`), for CPU tensors only.  ``x``
+may be f32 or bf16 (``activation_dtype: bfloat16``); the kernel's
+output is f32 either way, as the TPU kernel's is, and
+:func:`segment_spmm_plain` is its plain version in every precision.  It is
 the raw, non-differentiable launcher; gradients go through
 :class:`SegmentSpmmFunction` (``ops.spmm.spmm``), whose backward is
 the transpose SpMM — the same kernel over the graph's reverse CSR
@@ -135,22 +138,33 @@ def segment_spmm_plain(src: torch.Tensor, dst: torch.Tensor,
     ``index_add_``: ``f32x2`` the exact ``w·x`` (:func:`spmm_coo`);
     ``bf16`` each term ``bf16(w·x)``; ``packed`` x split into hi/lo
     planes (:func:`_hi_lo_bits`), ``m = (hi + lo)·w`` per edge split
-    again, the two planes summed apart and added at the end."""
+    again, the two planes summed apart and added at the end.
+
+    A bf16 ``x`` gives an f32 output too.  ``f32x2`` and ``bf16`` then
+    take the weight rounded to bf16 (``w.astype(x.dtype)``): ``f32x2``
+    sums the exact f32 products, ``bf16`` the products rounded to bf16;
+    ``packed`` widens x to f32 (hi = x, lo = 0) and keeps the f32
+    weight."""
     _check_precision(precision)
-    if precision == "f32x2":
+    bf16_x = x.dtype == torch.bfloat16
+    if precision == "f32x2" and not bf16_x:
         return spmm_coo(src, dst, weight, x, n_out)
     e, d = src.shape[0], x.shape[1]
     planes = 2 if precision == "packed" else 1
     out = torch.zeros((planes, n_out, d), dtype=torch.float32,
                       device=x.device)
+    x = x.to(torch.float32)
+    w = weight.to(torch.float32)
     if precision == "packed":
-        hi, lo = _hi_lo_bits(x.to(torch.float32))
+        hi, lo = _hi_lo_bits(x)
         x = hi + lo
+    elif bf16_x:
+        w = _bf16(w)
     chunk = max(1, min(e, MSGS_BYTES_BUDGET // max(1, 2 * d * 4)))
     for s in range(0, e, chunk):
-        m = (x.index_select(0, src[s:s + chunk])
-             * weight[s:s + chunk, None].to(torch.float32))
-        terms = _hi_lo_bits(m) if precision == "packed" else (_bf16(m),)
+        m = x.index_select(0, src[s:s + chunk]) * w[s:s + chunk, None]
+        terms = (_hi_lo_bits(m) if precision == "packed"
+                 else (_bf16(m),) if precision == "bf16" else (m,))
         for p, t in enumerate(terms):
             out[p].index_add_(0, dst[s:s + chunk], t)
     return out.sum(0) if precision == "packed" else out[0]
@@ -303,10 +317,11 @@ def segment_spmm_shares_plain(src: torch.Tensor, weight: torch.Tensor,
 
 
 def _check_cuda_args(src, dst, weight, rowptr, x):
+    cuda_build.check_row_dtype("segment_spmm", "x", x)
     cuda_build.check_tensors("segment_spmm", x.device, (
         ("src", src, torch.int32, 1), ("dst", dst, torch.int32, 1),
         ("weight", weight, torch.float32, 1),
-        ("rowptr", rowptr, torch.int64, 1), ("x", x, torch.float32, 2)))
+        ("rowptr", rowptr, torch.int64, 1), ("x", x, x.dtype, 2)))
     e = src.shape[0]
     if dst.shape[0] != e or weight.shape[0] != e:
         raise ValueError(
@@ -325,11 +340,14 @@ def segment_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
     (:func:`build_rowptr`); the output has ``len(rowptr) - 1`` rows.
     ``precision`` (one of ``PRECISIONS``) says how each term is formed
     (:func:`segment_spmm_plain`).  A CUDA ``x`` launches the kernel (f32
-    ``x``/``weight``, int32 ``src``/``dst``, int64 ``rowptr``, all
-    contiguous on one card; any other input raises) over shares of
-    ``SHARE_EDGES`` edges, with a carry workspace of
-    :func:`share_workspace_shape`; one launch runs the share pass and
-    the carry pass.  A CPU ``x`` runs :func:`spmm_coo` (``f32x2``) or
+    or bf16 ``x``, read as it is, f32 ``weight``, int32 ``src``/``dst``,
+    int64 ``rowptr``, all contiguous on one card; any other input
+    raises) over shares of ``SHARE_EDGES`` edges, with a carry workspace
+    of :func:`share_workspace_shape`; one launch runs the share pass and
+    the carry pass.  The output is f32.  A CPU ``x`` runs
+    :func:`spmm_coo` in ``f32x2``, in x's dtype (the JAX package's path
+    off the TPU, which a bf16 x keeps bf16; the f32x2 kernel's plain
+    version for a bf16 x is :func:`segment_spmm_plain`), or
     :func:`segment_spmm_plain`.  ``segment_spmm.launches`` counts kernel
     launches."""
     n_rows = rowptr.shape[0] - 1
@@ -367,11 +385,12 @@ def _segment_spmm_cuda(src, dst, weight, rowptr, x, share_edges: int,
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.segment_spmm_f32(
+        rc = lib.segment_spmm_launch(
             x.data_ptr(), src.data_ptr(), weight.data_ptr(),
             dst.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
             carry.data_ptr(), n_rows, e, d, cuda_build.vec_width(x),
-            share_edges, PRECISIONS.index(precision), stream)
+            share_edges, PRECISIONS.index(precision),
+            int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"segment_spmm launch failed: CUDA error {rc}")
     return out
@@ -410,11 +429,14 @@ class SegmentSpmmFunction(torch.autograd.Function):
     its edge weight, passed apart so that autograd can see it.
 
     Forward: :func:`segment_spmm` in the graph's ``precision`` on a
-    CUDA tensor; a CPU tensor runs ``f32x2``, as the JAX package runs
-    its Pallas kernel, and so its precision, on the TPU only.  Backward:
-    the x-cotangent is :func:`segment_spmm_transpose` in the same
-    precision — the CUDA kernel for a CUDA tensor, the plain ``spmm_coo``
-    over the same reverse arrays for a CPU one; autograd never
+    CUDA tensor (an f32 output, for a bf16 x too, as the TPU kernel
+    gives); a CPU tensor runs ``f32x2``, :func:`spmm_coo` in x's dtype,
+    as the JAX package runs its Pallas kernel, and so its precision, on
+    the TPU only, and ``spmm_coo`` elsewhere.  Backward: the x-cotangent
+    is :func:`segment_spmm_transpose` in the same precision on the
+    cotangent as it comes (f32 on the card) — the CUDA kernel for a
+    CUDA tensor, the plain ``spmm_coo`` over the same reverse arrays
+    for a CPU one; autograd hands it on in x's dtype and never
     differentiates ``spmm_coo`` here.  The weight
     cotangent is ``None`` unless ``weight_grad``; then it is
     ``gw[e] = Σ_d x[src[e], d]·g[dst[e], d]`` in plain torch, as the
@@ -463,10 +485,11 @@ def weight_cotangent(graph, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("segment_spmm")
-    fn = lib.segment_spmm_f32
+    fn = lib.segment_spmm_launch
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         ll, i = ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, i,
+                       vp]
         fn.restype = ctypes.c_int
     return lib

@@ -26,6 +26,13 @@ the probe's:
     range is ``rowptr[i·bm]`` to ``rowptr[min((i+1)·bm, n)]`` — the
     probe's ``block_ptr`` read off the CSR row pointer.
 
+bf16 messages (``activation_dtype: bfloat16``, the ``xla`` path) are
+summed in ``f32`` mode with the edge weight only: each term is
+``bf16(bf16(weight[e])·msgs[e])``, as the JAX package's ``x[src] *
+w.astype(bf16)`` forms it, the sum is taken in f32 and the bf16 output
+rounded once per element (``out=``: ``bf16(out + Σ)``).  The kernel
+reads the bf16 rows itself.  The other modes take f32 messages.
+
 ``bm`` and ``ec`` define the stream mode only.  The kernel runs the
 other three modes on equal edge shares of ``SHARE_EDGES`` edges, one
 warp each, whatever rows they fall in, and sums a row that crosses a
@@ -57,7 +64,12 @@ SHARE_EDGES = 128
 
 def _terms(msgs: torch.Tensor, mode: str,
            weight: torch.Tensor | None = None) -> torch.Tensor:
-    """The term each message adds in ``mode`` (f32, bf16, hilo)."""
+    """The term each message adds in ``mode`` (f32, bf16, hilo), in f32
+    (bf16 messages: ``bf16(bf16(w)·m)``)."""
+    if msgs.dtype == torch.bfloat16:
+        wb = weight.to(torch.bfloat16).to(torch.float32)
+        return (wb[:, None] * msgs.to(torch.float32)).to(
+            torch.bfloat16).to(torch.float32)
     if mode == "f32":
         return msgs if weight is None else weight[:, None] * msgs
     hi = msgs.to(torch.bfloat16).to(msgs.dtype)
@@ -91,8 +103,13 @@ def block_segment_sum_plain(msgs: torch.Tensor, dst: torch.Tensor,
     """The plain version of every mode, following the definitions in
     the module docstring; sums the edges ``[rowptr[0], rowptr[-1])``
     with ``index_add_`` (into ``out`` in place when given, else into
-    zeros)."""
+    zeros).  bf16 messages: the terms summed in f32, the output (and
+    ``out``, which is then overwritten) bf16, rounded once."""
     _check_mode(msgs, mode, weight, bm, ec)
+    if msgs.dtype == torch.bfloat16:
+        terms = _terms(msgs, mode, weight)
+        return _bf16_out(lambda o: block_segment_sum_plain(
+            terms, dst, rowptr, "f32", o), out)
     if out is None:
         out = torch.zeros((rowptr.shape[0] - 1, msgs.shape[1]),
                           dtype=msgs.dtype, device=msgs.device)
@@ -118,14 +135,32 @@ def block_segment_sum_shares_plain(msgs: torch.Tensor, rowptr: torch.Tensor,
     if mode == "stream":
         raise ValueError("block_segment_sum: stream mode has no share "
                          "schedule")
+    if msgs.dtype == torch.bfloat16:
+        terms = _terms(msgs, mode, weight)
+        return _bf16_out(lambda o: block_segment_sum_shares_plain(
+            terms, rowptr, "f32", o, share_edges=share_edges), out)
     got = share_sum_plain(_terms(msgs, mode, weight), rowptr, share_edges)
     return got if out is None else out.add_(got)
+
+
+def _bf16_out(f32_sum, out):
+    """A plain version on bf16 messages: ``f32_sum`` (given an f32
+    ``out`` or None) sums their f32 terms, into ``out`` widened when it
+    is given; the result rounded to bf16 once (written into ``out``
+    when it is given)."""
+    acc = f32_sum(None if out is None else out.to(torch.float32))
+    if out is None:
+        return acc.to(torch.bfloat16)
+    return out.copy_(acc)
 
 
 def _check_mode(msgs, mode, weight, bm, ec):
     if mode not in MODES:
         raise ValueError(f"block_segment_sum: mode must be one of {MODES}, "
                          f"got {mode!r}")
+    if msgs.dtype == torch.bfloat16 and (mode != "f32" or weight is None):
+        raise ValueError("block_segment_sum: bf16 messages are summed in "
+                         "f32 mode with a weight only")
     if weight is not None and mode != "f32":
         raise ValueError(f"block_segment_sum: a weight is summed in f32 "
                          f"mode only, got mode {mode!r}")
@@ -138,10 +173,11 @@ def _check_mode(msgs, mode, weight, bm, ec):
 
 
 def _check_cuda_args(msgs, dst, rowptr, out, weight, mode):
-    specs = [("msgs", msgs, torch.float32, 2), ("dst", dst, torch.int32, 1),
+    cuda_build.check_row_dtype("block_segment_sum", "msgs", msgs)
+    specs = [("msgs", msgs, msgs.dtype, 2), ("dst", dst, torch.int32, 1),
              ("rowptr", rowptr, torch.int64, 1)]
     if out is not None:
-        specs.append(("out", out, torch.float32, 2))
+        specs.append(("out", out, msgs.dtype, 2))
     if weight is not None:
         specs.append(("weight", weight, torch.float32, 1))
     cuda_build.check_tensors("block_segment_sum", msgs.device, specs)
@@ -185,11 +221,13 @@ def block_segment_sum(msgs: torch.Tensor, dst: torch.Tensor,
     first.  A given ``out`` is accumulated into in place (the TPU
     kernel's ``prev_ref`` alias) and returned, its rows without edges
     left as they are; otherwise a new tensor is.  A CUDA ``msgs``
-    launches the kernel (f32 ``msgs``/``out``/``weight``, int32 ``dst``,
+    launches the kernel (f32 ``msgs``/``out``/``weight``, or bf16
+    ``msgs``/``out`` in f32 mode with the f32 weight, int32 ``dst``,
     int64 ``rowptr``, all contiguous on one card; any other input
     raises); f32, bf16 and hilo run a share pass and a carry pass over
-    a workspace of one (2, D) slot pair per block of shares, sized by
-    the kernel's library.  A CPU
+    a workspace of one (2, D) slot pair per block of shares (per share
+    for bf16 messages), sized by the kernel's library.  The output has
+    the messages' dtype.  A CPU
     ``msgs`` runs :func:`block_segment_sum_plain`.
     ``block_segment_sum.launches`` counts kernel launches."""
     if msgs.device.type == "cpu":
@@ -217,18 +255,18 @@ def _block_segment_sum_cuda(msgs, dst, rowptr, mode, out, weight, bm, ec,
     _check_cuda_args(msgs, dst, rowptr, out, weight, mode)
     n_rows, (e, d) = rowptr.shape[0] - 1, msgs.shape
     accumulate = out is not None
+    bf16 = msgs.dtype == torch.bfloat16
     if out is None:
-        out = torch.empty((n_rows, d), dtype=torch.float32,
-                          device=msgs.device)
+        out = torch.empty((n_rows, d), dtype=msgs.dtype, device=msgs.device)
     if n_rows == 0 or d == 0:
         return out
     lib = _library()
     carry = None
     if mode != "stream":
-        # one carry slot pair per block of the share pass, as the .cu
-        # lays its grid out
+        # one carry slot pair per block of the share pass (per share for
+        # bf16 messages), as the .cu lays its grid out
         rows = lib.block_segment_sum_carry_rows(e, d, int(weight is not None),
-                                                share_edges)
+                                                share_edges, int(bf16))
         if rows < 0:
             raise ValueError(f"block_segment_sum: no share layout for rows "
                              f"of {d} floats at share_edges={share_edges}")
@@ -236,12 +274,15 @@ def _block_segment_sum_cuda(msgs, dst, rowptr, mode, out, weight, bm, ec,
                             device=msgs.device)
     with torch.cuda.device(msgs.device):
         stream = torch.cuda.current_stream(msgs.device).cuda_stream
-        rc = lib.block_segment_sum_f32(
+        # bf16: the widest piece both the messages and out allow
+        vec = (min(cuda_build.vec_width(msgs), cuda_build.vec_width(out))
+               if bf16 else _lane_width(d, out))
+        rc = lib.block_segment_sum_launch(
             msgs.data_ptr(), dst.data_ptr(), rowptr.data_ptr(),
             None if weight is None else weight.data_ptr(), out.data_ptr(),
             None if carry is None else carry.data_ptr(), n_rows, e, d,
-            _lane_width(d, out), MODES.index(mode), bm, ec, share_edges,
-            int(accumulate), stream)
+            vec, MODES.index(mode), bm, ec, share_edges,
+            int(accumulate), int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"block_segment_sum launch failed: CUDA error {rc}")
     return out
@@ -249,15 +290,15 @@ def _block_segment_sum_cuda(msgs, dst, rowptr, mode, out, weight, bm, ec,
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("segment_sum")
-    fn = lib.block_segment_sum_f32
+    fn = lib.block_segment_sum_launch
     if fn.argtypes is None:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, i, i, i,
-                       vp]
+                       i, vp]
         fn.restype = ctypes.c_int
     rows = lib.block_segment_sum_carry_rows
     if rows.argtypes is None:
         rows.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int]
+                         ctypes.c_int, ctypes.c_int]
         rows.restype = ctypes.c_longlong
     return lib

@@ -30,8 +30,15 @@ only on the Pallas path, so the other implementations ignore it.
 On CPU tensors an ``xla`` graph runs the same composition through the
 plain versions of D2 and D1 and an ``ell`` graph with its layouts the
 plain ``ell_spmm``; ``pallas`` runs the plain version ``spmm_coo`` in
-f32, as the JAX package ignores ``pallas`` off the TPU.  A CUDA tensor
-runs the kernels or raises; it never takes a plain version.
+x's dtype, as the JAX package ignores ``pallas`` off the TPU.  A CUDA
+tensor runs the kernels or raises; it never takes a plain version.
+
+A bf16 ``x`` (``activation_dtype: bfloat16``) goes through as it is,
+with the output dtypes of the JAX package: bf16 on ``ell`` and ``xla``
+(K2, and D2 + D1, read bf16 rows and round each output once), f32 on
+``pallas`` on the card (K1 gives f32, as the TPU kernel does) and bf16
+on the CPU (``spmm_coo``), and f32 on the dense form (the promoted
+dtype of ``jnp.dot(..., preferred_element_type=f32)``).
 
 Gradients: ``spmm`` goes through ``EllSpmmFunction`` (``ell``),
 ``SegmentSpmmFunction`` (``pallas``) or ``CooSpmmFunction`` (``xla``),
@@ -66,7 +73,8 @@ __all__ = ["Graph", "BipartiteDenseGraph", "CooSpmmFunction",
            "EllSpmmFunction", "build_graph",
            "build_dense_bipartite", "spmm", "spmm_any", "spmm_coo",
            "spmm_dense_bipartite", "spmm_dense_bipartite_dropout",
-           "dense_dropout_masks", "graph_impl", "matvec_any", "xla_spmm",
+           "dense_dropout_masks", "dense_dtype", "graph_impl", "matvec_any",
+           "xla_spmm",
            "SPMM_IMPLS",
            "SPMM_PRECISIONS"]
 
@@ -424,14 +432,34 @@ def build_dense_bipartite(users: np.ndarray, items: np.ndarray,
                                int(n_users), int(n_items), len(users))
 
 
+def dense_dtype(a: torch.Tensor, x: torch.Tensor) -> torch.dtype:
+    """The dtype of a dense product ``a·x`` as the JAX package's
+    ``jnp.dot(a, x, preferred_element_type=f32)`` gives it: the promoted
+    type of the two, and f32 where both are bf16 (f32 ``a`` with a bf16
+    ``x`` is f32; so is a bf16 ``a`` with a bf16 ``x``)."""
+    dt = torch.promote_types(a.dtype, x.dtype)
+    return torch.float32 if dt == torch.bfloat16 else dt
+
+
+def _dense_product(a: torch.Tensor, x: torch.Tensor, n_users: int
+                   ) -> torch.Tensor:
+    """U←A·I and I←Aᵀ·U in :func:`dense_dtype`: both operands widened
+    to it (exact from bf16), so the products sum in f32 as JAX's
+    ``preferred_element_type=f32`` does."""
+    dt = dense_dtype(a, x)
+    a, x = a.to(dt), x.to(dt)
+    xu, xi = x[:n_users], x[n_users:]
+    return torch.cat([torch.matmul(a, xi), torch.matmul(a.T, xu)], dim=0)
+
+
 def spmm_dense_bipartite(graph: BipartiteDenseGraph,
                          x: torch.Tensor) -> torch.Tensor:
     """Two dense products (U←A·I, I←Aᵀ·U), left to cuBLAS as the JAX
-    package leaves them to XLA; a bf16-stored ``a`` is widened to x's
-    dtype first."""
-    a = graph.a if graph.a.dtype == x.dtype else graph.a.to(x.dtype)
-    xu, xi = x[:graph.n_users], x[graph.n_users:]
-    return torch.cat([torch.matmul(a, xi), torch.matmul(a.T, xu)], dim=0)
+    package leaves them to XLA, in the promoted dtype
+    (:func:`dense_dtype`): a bf16 ``x`` or a bf16-stored ``a`` gives an
+    f32 output, as JAX's ``jnp.dot`` with ``preferred_element_type=f32``
+    does; neither operand is narrowed."""
+    return _dense_product(graph.a, x, graph.n_users)
 
 
 def dense_dropout_masks(gen: torch.Generator, graph: BipartiteDenseGraph,
@@ -449,9 +477,11 @@ def spmm_dense_bipartite_dropout(graph: BipartiteDenseGraph, x: torch.Tensor,
     """Dense propagation with per-direction edge dropout and no rescale
     (PyG ``dropout_adj`` on the COO path: each direction dropped
     independently, weights kept): U ← (m₁ ⊙ A)·I, I ← (m₂ ⊙ A)ᵀ·U, with
-    ``masks`` from :func:`dense_dropout_masks`."""
-    a = graph.a if graph.a.dtype == x.dtype else graph.a.to(x.dtype)
-    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    ``masks`` from :func:`dense_dropout_masks`; in the promoted dtype
+    as :func:`spmm_dense_bipartite`."""
+    dt = dense_dtype(graph.a, x)
+    a, x = graph.a.to(dt), x.to(dt)
+    zero = torch.zeros((), dtype=dt, device=a.device)
     a1 = torch.where(masks[0], a, zero)
     a2 = torch.where(masks[1], a, zero)
     xu, xi = x[:graph.n_users], x[graph.n_users:]
