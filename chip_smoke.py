@@ -137,8 +137,10 @@ slots multiply by 0; a zero-weight real edge from a non-finite row), K1
 and K1ᵀ in ``bf16`` and
 ``packed`` against ``segment_spmm_plain``, every kernel in its
 bf16-x mode (``activation_dtype: bfloat16``; K2, K2ᵀ, K1 and K1ᵀ in
-each precision, D2 bit for bit, D1 with the weight, new, ``out=`` and
-``rowptr[0] != 0``, and the xla SpMM) against its bf16-x plain version
+each precision, D2 bit for bit, D1 with the weight, new, ``out=``,
+``rowptr[0] != 0`` and a row pointer holding only the row with the most
+edges, also against its share schedule and rerun bit for bit, and the
+xla SpMM) against its bf16-x plain version
 on bf16 copies of the inputs, within one bf16 unit of the plain value
 (2⁻⁷·|plain|) plus 1e-4·Σ|term|, K1 and K1ᵀ also
 against their share schedule in plain torch
@@ -146,17 +148,28 @@ against their share schedule in plain torch
 the edge weight that the xla path sums inside it, also against its
 share schedule (``block_segment_sum_shares_plain``), with a row pointer
 that does not start at 0 and accumulating into ``out``; the small edge
-cases at share size 1 too (``SHARE_CHECKED``).  It reruns K1, K1ᵀ, K2,
-K2ᵀ and D1 at the slice shape for bit equality, reads the device
+cases (among them D = 36, whose 72-byte bf16 rows D1 stages by cp.async
+rather than TMA) at share size 1 too (``SHARE_CHECKED``), K1's and
+D1's redesigned instances (K1 ``bf16`` and ``packed`` on f32 and bf16
+x, D1 on bf16 messages) included.  It reruns K1 in every precision on
+f32 and bf16 x, K1ᵀ in every precision, K2, K2ᵀ and D1 (f32 and bf16
+messages) at the slice shape for bit equality, reads the device
 kernels of one call of each from the profiler (K1 and D1: share pass
-and carry pass; K2: row pass and combine pass), and times them beside
-their plain versions and one-call yardsticks; K2 also in three L2
+and carry pass; K1 ``packed`` also its pack pass; K2: row pass and
+combine pass), and times them beside
+their plain versions and one-call yardsticks (on bf16 values too:
+``torch.sparse.mm`` of a bf16 CSR, or what the card's torch raised);
+K2 also in three L2
 states (warm with its output block reused, warm with every output kept
 alive, flushed), and every kernel inside its path's training step
-(device µs per launch, from the step profile).
+(device µs per launch, from the step profile).  The build prints each
+kernel's registers and spills (``-Xptxas=-v``), and each share-pass
+instance that runs at the slice's width its registers, local memory
+and resident blocks per SM as the card's runtime reports them.
 
 Prints the card's name and power limit, the build, check and timing
-lines, then a ``{"kernels": [...]}`` line and, last,
+lines, then a ``{"kernels": [...]}`` line (K1, K1ᵀ, D2, D1, K2, K2ᵀ,
+and K7a and K7b from the parallel phase) and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when there is no CUDA device or any check fails.  Imports nothing of
 JAX or of the JAX package.
@@ -279,6 +292,19 @@ def log(msg: str):
     print(msg, flush=True)
 
 
+def lap_timer():
+    """``lap(what)`` logs the wall time since the previous ``lap`` (or
+    since this call) as ``time <what>: N s``: where a phase's time goes,
+    read when a depth cut is chosen."""
+    last = [time.perf_counter()]
+
+    def lap(what: str):
+        now = time.perf_counter()
+        log(f"time {what}: {now - last[0]:.1f} s")
+        last[0] = now
+    return lap
+
+
 class capped_train_steps:
     """Within the block, the train loaders ``data_preparation`` builds
     (general and sequential) yield at most ``steps`` batches per epoch
@@ -316,17 +342,20 @@ class capped_train_steps:
 
 
 def counters():
-    """Every kernel wrapper's launch counter, by kernel name."""
+    """Every kernel wrapper's launch counter, by kernel name (and K7b's
+    calls, its composition of cuBLAS and ``torch.topk``)."""
     from recbole_gnn_tpu_torch.ops.ell_spmm import (ell_spmm,
                                                     ell_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.gather import row_gather
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
         segment_spmm, segment_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.segment_sum import block_segment_sum
+    from recbole_gnn_tpu_torch.parallel.topk import distributed_full_sort_topk
     return {"segment_spmm": segment_spmm,
             "segment_spmm_transpose": segment_spmm_transpose,
             "row_gather": row_gather, "block_segment_sum": block_segment_sum,
-            "ell_spmm": ell_spmm, "ell_spmm_transpose": ell_spmm_transpose}
+            "ell_spmm": ell_spmm, "ell_spmm_transpose": ell_spmm_transpose,
+            "distributed_full_sort_topk": distributed_full_sort_topk}
 
 
 def reset_counts():
@@ -348,6 +377,41 @@ def read_counts() -> dict:
 def time_cuda_ms(fn) -> float:
     from recbole_gnn_tpu_torch.diag.timing import time_ms
     return time_ms(fn, torch.device("cuda"))
+
+
+def share_pass_usage_at(d: int) -> dict:
+    """What each share-pass instance that runs at width ``d`` uses (K1 in
+    every precision on f32 and bf16 x at their widest pieces; D1 with
+    the weight on f32 and bf16 messages, and f32 / bf16 / hilo without
+    it, at its lane width), from the card's runtime."""
+    from recbole_gnn_tpu_torch.ops import cuda_build
+    from recbole_gnn_tpu_torch.ops import segment_spmm as k1
+    from recbole_gnn_tpu_torch.ops import segment_sum as d1
+    out = {}
+    for p in k1.PRECISIONS:
+        for dt in (torch.float32, torch.bfloat16):
+            vec = cuda_build.vec_width(torch.empty((1, d), dtype=dt))
+            out[f"K1 {p} {str(dt)[6:]} x"] = k1.share_pass_usage(p, dt, vec, d)
+    for mode, weighted, dt in (("f32", True, torch.float32),
+                               ("f32", True, torch.bfloat16),
+                               ("f32", False, torch.float32),
+                               ("bf16", False, torch.float32),
+                               ("hilo", False, torch.float32)):
+        vec = d1._lane_width(d, torch.empty((1, d), dtype=dt))
+        out[f"D1 {mode}{' weighted' if weighted else ''} {str(dt)[6:]} "
+            f"messages"] = d1.share_pass_usage(mode, weighted, dt, vec, d)
+    return out
+
+
+def library_call(fn) -> dict:
+    """A one-call yardstick's time (``ms``), or, where the card's torch
+    refuses the call (bf16 values in a sparse product, say), ``ms``
+    None and what it raised (``error``)."""
+    try:
+        fn()
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        return {"ms": None, "error": f"{type(exc).__name__}: {exc}"[:300]}
+    return {"ms": time_cuda_ms(fn), "error": None}
 
 
 def device_us_by_kernel(fn, reps: int = 20, kernels: int = 2,
@@ -458,17 +522,14 @@ def check_kernels(name: str, graph, x: torch.Tensor, g: torch.Tensor,
     SHARE_EDGES (or None), the uncounted ``_segment_spmm_cuda`` at any
     other.  Returns (max |err| forward, max |err| transpose)."""
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
-        SHARE_EDGES, _segment_spmm_cuda, segment_spmm,
-        segment_spmm_shares_plain, segment_spmm_transpose, share_schedule,
-        spmm_coo)
+        SHARE_EDGES, segment_spmm_shares_plain, segment_spmm_transpose,
+        share_schedule, spmm_coo)
     errs = []
     fwd = (graph.src, graph.dst, graph.weight)
     rev = (graph.rev_src, graph.rev_dst, graph.rev_weight)
     swapped = (graph.dst, graph.src, graph.weight)
-    k1_args = (graph.src, graph.dst, graph.weight, graph.rowptr, x)
     runs = [("K1", t or SHARE_EDGES,
-             segment_spmm(*k1_args) if t in (None, SHARE_EDGES)
-             else _segment_spmm_cuda(*k1_args, t),
+             k1_run(fwd, graph.rowptr, x, "f32x2", t),
              fwd, graph.rowptr, (fwd,), x, graph.n_nodes)
             for t in share_sizes]
     runs.append(("K1T", SHARE_EDGES,
@@ -632,32 +693,47 @@ def check_ell_cases(rng: np.random.Generator, dev) -> tuple[float, float]:
     return errs[0], errs[1]
 
 
-def check_k1_modes(name: str, graph, x: torch.Tensor, g: torch.Tensor
-                   ) -> dict:
-    """K1 and K1ᵀ in each of ``K1_MODES`` against its plain version
-    ``segment_spmm_plain`` (the same terms, summed in another order).
-    Returns the largest |err| per mode."""
+def k1_run(arrays, rp, inp, prec: str, t, transpose: bool = False):
+    """K1 (or K1ᵀ, over the reverse CSR) in ``prec`` through its public
+    wrapper at the module's SHARE_EDGES (``t`` None or that size), else
+    through the uncounted ``_segment_spmm_cuda`` at share size ``t``."""
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
-        segment_spmm, segment_spmm_plain, segment_spmm_transpose, spmm_coo)
+        SHARE_EDGES, _segment_spmm_cuda, segment_spmm, segment_spmm_transpose)
+    s, d, w = arrays
+    if t in (None, SHARE_EDGES):
+        fn = segment_spmm_transpose if transpose else segment_spmm
+        return fn(s, d, w, rp, inp, prec)
+    return _segment_spmm_cuda(s, d, w, rp, inp.contiguous(), t, prec)
+
+
+def check_k1_modes(name: str, graph, x: torch.Tensor, g: torch.Tensor,
+                   share_sizes=(None,)) -> dict:
+    """K1 and K1ᵀ in each of ``K1_MODES`` against its plain version
+    ``segment_spmm_plain`` (the same terms, summed in another order), at
+    each share size of ``share_sizes`` (:func:`k1_run`).  Returns the
+    largest |err| per mode."""
+    from recbole_gnn_tpu_torch.ops.segment_spmm import (segment_spmm_plain,
+                                                        spmm_coo)
     out = {}
     for prec in K1_MODES:
         errs = []
-        for kind, arrays, rp, inp, n_out, fn in (
+        for kind, arrays, rp, inp, n_out in (
                 ("K1", (graph.src, graph.dst, graph.weight), graph.rowptr,
-                 x, graph.n_nodes, segment_spmm),
+                 x, graph.n_nodes),
                 ("K1T", (graph.rev_src, graph.rev_dst, graph.rev_weight),
-                 graph.rev_rowptr, g, graph.n_src_nodes,
-                 segment_spmm_transpose)):
+                 graph.rev_rowptr, g, graph.n_src_nodes)):
             s, d, w = arrays
-            got = fn(s, d, w, rp, inp, prec)
             # Σ|term|: bf16 rounding moves a term by < 0.4 %
             abssum = spmm_coo(s, d, w.abs(), inp.abs(), n_out)
-            errs.append(hold(f"{kind} {prec}", name, got,
-                             segment_spmm_plain(s, d, w, inp, n_out, prec),
-                             abssum))
+            want = segment_spmm_plain(s, d, w, inp, n_out, prec)
+            for t in share_sizes:
+                got = k1_run(arrays, rp, inp, prec, t, kind == "K1T")
+                errs.append(hold(f"{kind} {prec} T={t or 'SHARE_EDGES'}",
+                                 name, got, want, abssum))
         out[prec] = max(errs)
-    log(f"kernel check K1/K1T modes {name}: " + ", ".join(
-        f"{p} max_abs_err={e:.3e}" for p, e in out.items()))
+    log(f"kernel check K1/K1T modes {name} T="
+        + ",".join(str(t or "SHARE_EDGES") for t in share_sizes) + ": "
+        + ", ".join(f"{p} max_abs_err={e:.3e}" for p, e in out.items()))
     return out
 
 
@@ -676,8 +752,8 @@ def check_d1(name: str, graph, x: torch.Tensor, share_sizes=(None,)
     the largest |err|."""
     from recbole_gnn_tpu_torch.ops.gather import row_gather_plain
     from recbole_gnn_tpu_torch.ops.segment_sum import (
-        BM, EC, SHARE_EDGES, _block_segment_sum_cuda, block_segment_sum,
-        block_segment_sum_plain, block_segment_sum_shares_plain)
+        SHARE_EDGES, block_segment_sum, block_segment_sum_plain,
+        block_segment_sum_shares_plain)
     raw = row_gather_plain(x, graph.src)
     w, dst, rp = graph.weight, graph.dst, graph.rowptr
     msgs = raw * w[:, None]
@@ -694,11 +770,7 @@ def check_d1(name: str, graph, x: torch.Tensor, share_sizes=(None,)
         for label, m, rowptr, mode, wt in weighted + (plain if module_t
                                                        else []):
             def run(out=None):
-                if module_t:
-                    return block_segment_sum(m, dst, rowptr, mode, out=out,
-                                             weight=wt)
-                return _block_segment_sum_cuda(m, dst, rowptr, mode, out, wt,
-                                               BM, EC, t)
+                return d1_run(m, dst, rowptr, t, out, wt, mode)
             # Σ|term| (bf16 rounding moves |m| by < 0.4 %)
             abssum = block_segment_sum_plain(
                 m.abs(), dst, rowptr, weight=None if wt is None else wt.abs())
@@ -798,24 +870,40 @@ def hold_bf16(kind: str, name: str, got: torch.Tensor, want: torch.Tensor,
     return max_err
 
 
-def check_bf16_kernels(name: str, pg, eg, x: torch.Tensor, g: torch.Tensor
-                       ) -> dict:
+def d1_run(msgs, dst, rowptr, t, out=None, weight=None, mode="f32"):
+    """D1 through its public wrapper at the module's SHARE_EDGES (``t``
+    None or that size), else through the uncounted
+    ``_block_segment_sum_cuda`` at share size ``t``."""
+    from recbole_gnn_tpu_torch.ops.segment_sum import (
+        BM, EC, SHARE_EDGES, _block_segment_sum_cuda, block_segment_sum)
+    if t in (None, SHARE_EDGES):
+        return block_segment_sum(msgs, dst, rowptr, mode, out=out,
+                                 weight=weight)
+    return _block_segment_sum_cuda(msgs, dst, rowptr, mode, out, weight, BM,
+                                   EC, t)
+
+
+def check_bf16_kernels(name: str, pg, eg, x: torch.Tensor, g: torch.Tensor,
+                       share_sizes=(None,)) -> dict:
     """Every kernel in its bf16-x mode against its bf16-x plain version
     on bf16 copies of x and of the cotangent g: K2 over ``eg.ell`` and
     K2ᵀ over ``eg.rev_ell`` (``ell_spmm_plain`` and the pad-free plain
     version, reruns bit-equal), K1 and K1ᵀ in each precision over
     ``pg``'s CSR (``segment_spmm_plain``, f32 out), D2 (bit for bit),
     D1 with the edge weight (new, ``out=``, a row pointer that does not
-    start at 0) and the xla SpMM whole, forward and transpose.  Returns
-    the largest |err| by kernel (K1's by precision)."""
+    start at 0 and one that holds only the row with the most edges,
+    against its plain version and its share schedule) and the xla SpMM
+    whole, forward and transpose.  K1, K1ᵀ and D1 run at each share
+    size of ``share_sizes`` (:func:`k1_run`, :func:`d1_run`).  Returns
+    the largest |err| by kernel (K1's and K1ᵀ's by precision)."""
     from recbole_gnn_tpu_torch.ops.ell_spmm import (
         ell_spmm, ell_spmm_pad_free_plain, ell_spmm_plain, ell_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.gather import row_gather, row_gather_plain
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
-        PRECISIONS, segment_spmm, segment_spmm_plain, segment_spmm_transpose,
-        spmm_coo)
+        PRECISIONS, segment_spmm_plain, spmm_coo)
     from recbole_gnn_tpu_torch.ops.segment_sum import (
-        block_segment_sum, block_segment_sum_plain)
+        SHARE_EDGES as D1_T, block_segment_sum_plain,
+        block_segment_sum_shares_plain)
     from recbole_gnn_tpu_torch.ops.spmm import xla_spmm
     bf = torch.bfloat16
     xb, gb = x.to(bf).contiguous(), g.to(bf).contiguous()
@@ -842,47 +930,56 @@ def check_bf16_kernels(name: str, pg, eg, x: torch.Tensor, g: torch.Tensor
     fwd = (pg.src, pg.dst, pg.weight, pg.rowptr, pg.n_nodes)
     rev = (pg.rev_src, pg.rev_dst, pg.rev_weight, pg.rev_rowptr,
            pg.n_src_nodes)
-    errs["segment_spmm"] = {}
-    errs["segment_spmm_transpose"] = 0.0
+    errs["segment_spmm"], errs["segment_spmm_transpose"] = {}, {}
     for p in PRECISIONS:
-        for kind, (s, d, w, rp, n_out), inp, fn in (
-                ("K1", fwd, xb, segment_spmm),
-                ("K1T", rev, gb, segment_spmm_transpose)):
-            got = fn(s, d, w, rp, inp, p)
-            e = hold_bf16(f"{kind} bf16x {p}", name, got,
-                          segment_spmm_plain(s, d, w, inp, n_out, p),
-                          abssum(s, d, w, inp, n_out))
-            if kind == "K1":
-                errs["segment_spmm"][p] = e
-            else:
-                errs["segment_spmm_transpose"] = max(
-                    errs["segment_spmm_transpose"], e)
+        for kind, (s, d, w, rp, n_out), inp in (("K1", fwd, xb),
+                                                ("K1T", rev, gb)):
+            want = segment_spmm_plain(s, d, w, inp, n_out, p)
+            a = abssum(s, d, w, inp, n_out)
+            for t in share_sizes:
+                e = hold_bf16(f"{kind} bf16x {p} T={t or 'SHARE_EDGES'}",
+                              name, k1_run((s, d, w), rp, inp, p, t,
+                                           kind == "K1T"), want, a)
+                by_p = errs["segment_spmm" if kind == "K1"
+                            else "segment_spmm_transpose"]
+                by_p[p] = max(by_p.get(p, 0.0), e)
     raw = row_gather(xb, pg.src)
     errs["row_gather"] = hold_bf16("D2 bf16x", name, raw,
                                    row_gather_plain(xb, pg.src), None)
     w, dst, rp = pg.weight, pg.dst, pg.rowptr
     e = raw.shape[0]
     prev = torch.randn(pg.n_nodes, x.shape[1], device=x.device).to(bf)
+    hub = int(torch.argmax(rp[1:] - rp[:-1]))
     d1 = 0.0
-    for label, rowptr in (("", rp),
-                          (" rowptr[0]!=0", rp.clamp(e // 3 + 1, 2 * e // 3))):
-        a = block_segment_sum_plain(raw.float().abs(), dst, rowptr,
-                                    weight=w.abs())
-        d1 = max(d1, hold_bf16(
-            f"D1 bf16x weighted{label}", name,
-            block_segment_sum(raw, dst, rowptr, "f32", weight=w),
-            block_segment_sum_plain(raw, dst, rowptr, "f32", weight=w), a))
-        got = block_segment_sum(raw, dst, rowptr, "f32", out=prev.clone(),
-                                weight=w)
-        d1 = max(d1, hold_bf16(
-            f"D1 bf16x weighted out={label}", name, got,
-            block_segment_sum_plain(raw, dst, rowptr, "f32",
-                                    out=prev.clone(), weight=w),
-            a + prev.float().abs()))
-        empty = rowptr[1:] == rowptr[:-1]
-        if not torch.equal(got[empty], prev[empty]):
-            raise AssertionError(f"D1 bf16x out= on {name} changed rows "
-                                 "without edges")
+    for t in share_sizes:
+        tt = t or D1_T
+        for label, rowptr in (
+                ("", rp), (" rowptr[0]!=0", rp.clamp(e // 3 + 1, 2 * e // 3)),
+                (" hub row", rp.clamp(rp[hub], rp[hub + 1]))):
+            label = f"{label} T={t or 'SHARE_EDGES'}"
+            a = block_segment_sum_plain(raw.float().abs(), dst, rowptr,
+                                        weight=w.abs())
+            got = d1_run(raw, dst, rowptr, t, weight=w)
+            for kind, want in (
+                    (f"D1 bf16x weighted{label}", block_segment_sum_plain(
+                        raw, dst, rowptr, "f32", weight=w)),
+                    (f"D1 bf16x weighted{label} (share schedule)",
+                     block_segment_sum_shares_plain(
+                         raw, rowptr, "f32", weight=w, share_edges=tt))):
+                d1 = max(d1, hold_bf16(kind, name, got, want, a))
+            if not torch.equal(got, d1_run(raw, dst, rowptr, t, weight=w)):
+                raise AssertionError(f"D1 bf16x{label} reruns on {name} "
+                                     "differ")
+            got = d1_run(raw, dst, rowptr, t, out=prev.clone(), weight=w)
+            d1 = max(d1, hold_bf16(
+                f"D1 bf16x weighted out={label}", name, got,
+                block_segment_sum_plain(raw, dst, rowptr, "f32",
+                                        out=prev.clone(), weight=w),
+                a + prev.float().abs()))
+            empty = rowptr[1:] == rowptr[:-1]
+            if not torch.equal(got[empty], prev[empty]):
+                raise AssertionError(f"D1 bf16x out={label} on {name} "
+                                     "changed rows without edges")
     errs["block_segment_sum"] = d1
     xla = 0.0
     for kind, (s, d, w, rp, n_out), inp in (("xla bf16x", fwd, xb),
@@ -893,15 +990,18 @@ def check_bf16_kernels(name: str, pg, eg, x: torch.Tensor, g: torch.Tensor
                                     weight=w),
             abssum(s, d, w, inp, n_out)))
     errs["xla_spmm"] = xla
-    log(f"kernel check bf16x {name}: d={x.shape[1]} " + ", ".join(
-        f"{k} max_abs_err=" + (json.dumps({p: f"{v:.3e}" for p, v in e.items()})
-                               if isinstance(e, dict) else f"{e:.3e}")
-        for k, e in errs.items()))
+    log(f"kernel check bf16x {name}: d={x.shape[1]} T="
+        + ",".join(str(t or "SHARE_EDGES") for t in share_sizes) + " "
+        + ", ".join(
+            f"{k} max_abs_err=" + (json.dumps({p: f"{v:.3e}"
+                                               for p, v in e.items()})
+                                   if isinstance(e, dict) else f"{e:.3e}")
+            for k, e in errs.items()))
     return errs
 
 
 def merge_errs(into: dict, errs: dict) -> dict:
-    """The larger |err| per key (per precision for K1)."""
+    """The larger |err| per key (per precision for K1 and K1ᵀ)."""
     for k, v in errs.items():
         if isinstance(v, dict):
             merge_errs(into.setdefault(k, {}), v)
@@ -964,6 +1064,10 @@ def edge_case_graphs(rng: np.random.Generator):
     on_buckets = np.repeat(np.arange(n), deg)
     cases.append(("ell_boundaries", rng.integers(0, n, len(on_buckets)),
                   on_buckets, n, n, 64))
+    # 72-byte bf16 rows: D1 stages bf16 messages by cp.async, not TMA
+    n, e = 3000, 30000
+    cases.append(("d36", rng.integers(0, n, e), rng.integers(0, n, e), n, n,
+                  36))
     return [(nm, s, d_, rng.normal(size=len(s)).astype(np.float32), nd, ns,
              dim) for nm, s, d_, nd, ns, dim in cases]
 
@@ -1675,6 +1779,7 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
     res = run_recbole_gnn_tpu(model=model_name, dataset="gowalla_shape",
                               config_dict=cd, saved=True, verbose=False)
     wall = time.perf_counter() - t0
+    lap = lap_timer()
     counts = read_counts()
     layout_builds = _layout_args.builds - builds0
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -1684,6 +1789,7 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
     (train_loader, train_ds), (valid_loader, _), _ = data_preparation(
         config, create_dataset(config))
     model = get_model(model_name)(config, train_ds, dev)
+    lap(f"[{tag}] dataset, loaders and model rebuilt")
     steps = len(train_loader)
     epoch_events = [e for e in events if e["event"] == "train_epoch"]
     valids = [e for e in events if e["event"] == "valid"]
@@ -1737,8 +1843,10 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
     trainer = Trainer(config, model)
     it = iter(train_loader)
     host_batches = [next(it) for _ in range(5 + TIMED_STEPS + 10)]
+    lap(f"[{tag}] checks of the run")
     step_ms, prof = time_train_steps(trainer, model, state, host_batches,
                                      dev, "ell", mode)
+    lap(f"[{tag}] timed and profiled steps")
     log(f"[{tag}] train step (host clock, synchronised, {TIMED_STEPS} steps "
         f"after 5 warm-up, loss mode {mode}): median "
         f"{np.median(step_ms):.3f} ms, min {min(step_ms):.3f}, max "
@@ -1764,6 +1872,7 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
             {"ell_spmm": n, "ell_spmm_transpose": n}, tag, bf16)
         log(f"[{tag}] step vs plain (loss mode {mode}): " + ", ".join(
             f"{k} {v:.6e}" for k, v in step_err.items()))
+    lap(f"[{tag}] evaluation and step vs plain")
     summary = {"epochs": epochs, "steps_per_epoch": steps,
                "batch": train_loader.batch_size,
                "epoch_s": [e["seconds"] for e in epoch_events],
@@ -1929,6 +2038,7 @@ def general_main(tmp: str, out_path: str) -> int:
     dev = torch.device("cuda")
     cuda_build.build(SOURCES)              # built by main: loads only
     paths, profiles, general = {}, {}, {}
+    lap = lap_timer()
     for model_name in GENERAL_MODELS:
         with (capped_train_steps(GENERAL_TRAIN_STEPS)
               if model_name not in GENERAL_FULL_EPOCHS
@@ -1937,8 +2047,11 @@ def general_main(tmp: str, out_path: str) -> int:
         paths[f"{model_name.lower()}_train"] = run["counts"]
         profiles[model_name] = run["profile"]
         general[model_name] = run
+        lap(f"[{model_name} ell] path")
     paths["sgl_serve"] = serve_path(general["SGL"], tmp, "ell", dev)
+    lap("[SGL ell] serve")
     paths.update(sgl_bf16_phase(tmp, general["SGL"], dev))
+    lap("SGL bf16 phase")
     try:
         export_artifact(general["NeuMF"]["config"],
                         os.path.join(tmp, "neumf.npz"),
@@ -1948,6 +2061,7 @@ def general_main(tmp: str, out_path: str) -> int:
     else:
         raise AssertionError("NeuMF's export did not raise")
     general_steps = general_extra_steps(tmp, general, dev)
+    lap("NeuMF export and the other impls' step checks")
     log(json.dumps({"general_models": {
         m: r["summary"] for m, r in general.items()},
         "general_step_vs_plain_other_impls": general_steps}))
@@ -2512,10 +2626,12 @@ def session_main(tmp: str, out_path: str) -> int:
         model="SRGNN", dataset="diginetica_shape",
         config_dict=session_config(tmp, "SRGNN")))
     paths, runs, summary = {}, {}, {}
+    lap = lap_timer()
     for name in SESSION_MODELS:
         with (capped_train_steps(SESSION_TRAIN_STEPS[name])
               if name in SESSION_TRAIN_STEPS else contextlib.nullcontext()):
             run = session_path(tmp, name, dev)
+        lap(f"[{name} session] path")
         paths[f"{name.lower()}_train"] = run["counts"]
         summary[name] = run["summary"]
         if name in SESSION_SERVED:        # SRGNN's also feeds the cell
@@ -2526,7 +2642,9 @@ def session_main(tmp: str, out_path: str) -> int:
     for name in SESSION_SERVED:
         serving[name] = session_serve(runs[name], name, dev)
         paths[f"{name.lower()}_serve"] = serving[name]["counts"]
+        lap(f"[{name} serve] path")
     cell_paths, cell = sparse_cell_on_kernels(runs["SRGNN"], dev)
+    lap("SR-GNN sparse cell")
     paths.update(cell_paths)
     log(json.dumps({"session_models": summary, "session_serving": serving,
                     "srgnn_cell": cell, "native_builder": native_check,
@@ -2902,11 +3020,13 @@ def social_main(tmp: str, out_path: str) -> int:
         f"({time.perf_counter() - t0:.1f} s): {LASTFM_SHAPE}; friend pairs "
         f"sharing an artist {shared_artist_share(inter, net):.4f}")
     paths, summary, steps = {}, {}, {}
+    lap = lap_timer()
     for name in SOCIAL_MODELS:
         run = social_path(tmp, name, dev)
         paths[f"{name.lower()}_social_ell_train"] = run["counts"]
         summary[name] = run["summary"]
         steps[name] = social_steps(tmp, run, name, dev)
+        lap(f"[{name} social ell] path and steps")
         if name == "DiffNet":
             # DiffNet on the other impls' kernels: K1, then D2 + D1
             for impl in ("pallas", "xla"):
@@ -2914,9 +3034,11 @@ def social_main(tmp: str, out_path: str) -> int:
                 paths[f"diffnet_social_{impl}_train"] = other["counts"]
                 summary[f"DiffNet {impl}"] = other["summary"]
                 del other
+                lap(f"[DiffNet social {impl}] path")
         if name == "MHCN":
             serving = social_serve(run, tmp, dev)
             paths["mhcn_social_serve"] = serving["counts"]
+            lap("[MHCN social serve] path")
         del run
         torch.cuda.empty_cache()
     log(json.dumps({"social_models": summary, "social_steps": steps,
@@ -3138,10 +3260,12 @@ def topk_alone(n_items: int, dev) -> dict:
     if not torch.equal(got[0], want.values):
         raise AssertionError("K7b alone: top-k values differ from the "
                              "plain form's")
+    same = got[0] == want.values  # equal infinities subtract to NaN
+    err = float(torch.where(same, 0.0, (got[0] - want.values).abs()).max())
     nb = (b * d + rows * d) * 4 + 2 * b * rows * 4 + b * h * 8 \
         + b * TOP_K * 12
     fl = 2 * b * rows * d
-    out = {"users": b, "item_rows": rows, "k": TOP_K,
+    out = {"users": b, "item_rows": rows, "k": TOP_K, "max_abs_err": err,
            "ms": time_cuda_ms(lambda: distributed_full_sort_topk(
                u, items, hist, TOP_K, None)),
            "plain_ms": time_cuda_ms(plain), "bytes": nb, "flops": fl,
@@ -3344,8 +3468,14 @@ def parallel_main(tmp: str, out_path: str) -> int:
             ranks.append(json.load(f))
     n_steps = len(tl)
     want = {k: 0 for k in counters()}
+    # K7b: the item-sharded full sort over tp, once per scored chunk of
+    # each validation batch, the same on every rank
+    topk_calls = ranks[0]["counts"]["distributed_full_sort_topk"]
+    if topk_calls < 1:
+        raise AssertionError("[parallel gloo] validation never ran K7b")
     want.update(ell_spmm=N_LAYERS * (n_steps + 1),
-                ell_spmm_transpose=N_LAYERS * n_steps)
+                ell_spmm_transpose=N_LAYERS * n_steps,
+                distributed_full_sort_topk=topk_calls)
     for r in ranks:
         if (r["counts"] != want or r["graph"] != "ShardedEll"
                 or r["backend"] != "gloo" or r["device"] != "cuda:0"):
@@ -3402,6 +3532,62 @@ def run_parallel_phase(tmp: str) -> dict:
 
 # -- main -------------------------------------------------------------------
 
+def k7a_entry(shards: dict, paths: dict) -> dict:
+    """K7a's line in the kernels list: the edge-sharded K2/K2ᵀ, all
+    PARALLEL_SHARDS shards run one after another on this card (ms, plain
+    ms, bound and ``torch.sparse.mm`` summed over the shards; forward,
+    and the transpose apart), its launches those of K2 and K2ᵀ on the
+    parallel paths that run sharded."""
+    per = shards["shards"]
+    total = {k: sum(p[k] for p in per) for k in (
+        "k2_ms", "k2t_ms", "plain_ms", "plain_t_ms", "bound_ms",
+        "bound_t_ms", "library_ms", "library_t_ms")}
+    sharded = ("parallel_shards", "parallel_nccl_train",
+               "parallel_gloo_train")
+    return {"name": "sharded_ell_spmm", "route": "cuda",
+            "source": "recbole_gnn_tpu_torch/csrc/ell_spmm.cu",
+            "replaces": "recbole_gnn_tpu/parallel/sharded_spmm.py:278",
+            "replaces_function": "sharded_ell_spmm (a shard_map "
+            "composition, no pallas_call)",
+            "launches": sum(paths[p]["ell_spmm"]
+                            + paths[p]["ell_spmm_transpose"]
+                            for p in sharded),
+            "launches_by_path": {p: paths[p]["ell_spmm"]
+                                 + paths[p]["ell_spmm_transpose"]
+                                 for p in sharded},
+            "max_abs_err": max(shards["max_abs_err"],
+                               shards["max_abs_err_t"]),
+            "ms": total["k2_ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": "bytes",
+            "library_ms": total["library_ms"], "library": "torch.sparse.mm",
+            "transpose": {"ms": total["k2t_ms"],
+                          "plain_ms": total["plain_t_ms"],
+                          "bound_ms": total["bound_t_ms"],
+                          "library_ms": total["library_t_ms"]},
+            "shards": len(per), "imbalance": shards["imbalance"],
+            "per_shard": per}
+
+
+def k7b_entry(topk: dict, paths: dict) -> dict:
+    """K7b's line: the item-sharded full-sort top-k, a composition of
+    cuBLAS and ``torch.topk`` with no kernel of the repo's own, timed
+    alone on a group of one; its launches its calls in the gloo ranks'
+    validation."""
+    return {"name": "distributed_full_sort_topk", "route": "cuda",
+            "hand_written": False,
+            "source": "recbole_gnn_tpu_torch/parallel/topk.py",
+            "replaces": "recbole_gnn_tpu/parallel/topk.py:26",
+            "replaces_function": "distributed_full_sort_topk (a shard_map "
+            "composition, no pallas_call)",
+            "launches": paths["parallel_gloo_train"][
+                "distributed_full_sort_topk"],
+            "max_abs_err": topk["max_abs_err"],
+            "ms": topk["ms"], "plain_ms": topk["plain_ms"],
+            "bound_ms": topk["bound_ms"], "bound_by": topk["bound_by"],
+            "library_ms": None, "shape": {k: topk[k] for k in (
+                "users", "item_rows", "k")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3444,10 +3630,15 @@ def main() -> int:
     build_log = cuda_build.build(SOURCES)
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(build_log) or 'already built'})")
+    # registers and spills of every kernel of the build, one line each
     for name, text in build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for entry in cuda_build.ptxas_usage(text):
+            log(f"  ptxas {name}: {json.dumps(entry)}")
+    # the share passes' instances at the slice's width: what the card's
+    # runtime reports (registers, local bytes, resident blocks per SM)
+    share_usage = share_pass_usage_at(EMBEDDING_SIZE)
+    for key, u in share_usage.items():
+        log(f"share pass {key} at D={EMBEDDING_SIZE}: {json.dumps(u)}")
 
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3458,19 +3649,26 @@ def main() -> int:
 
         # 4. the paths, each with the counters at 0 before it: the
         # default impl first
+        lap = lap_timer()
         ell = train_path(tmp, "ell", dev)
         paths["ell_train"] = ell["counts"]
+        lap("[ell] train path")
         paths["ell_serve"] = serve_path(ell, tmp, "ell", dev)
+        lap("[ell] serve path")
         with capped_train_steps(FAMILY_TRAIN_STEPS):
             pallas = train_path(tmp, "pallas", dev)
         paths["pallas_train"] = pallas["counts"]
+        lap("[pallas] train path")
         paths["pallas_serve"] = serve_path(pallas, tmp, "pallas", dev,
                                            batches=(1, 64))
+        lap("[pallas] serve path")
         with capped_train_steps(FAMILY_TRAIN_STEPS):
             xla = train_path(tmp, "xla", dev)
         paths["xla_train"] = xla["counts"]
+        lap("[xla] train path")
         paths["xla_serve"] = serve_path(xla, tmp, "xla", dev,
                                         batches=(1, 64))
+        lap("[xla] serve path")
         profiles = {"ell": ell["profile"], "pallas": pallas["profile"],
                     "xla": xla["profile"]}
         for model_name in ("SimGCL", "XSimGCL"):
@@ -3479,10 +3677,12 @@ def main() -> int:
             paths[f"{model_name.lower()}_train"] = run["counts"]
             profiles[model_name] = run["profile"]
             del run
+            lap(f"[{model_name} ell] train path")
         reset_counts()
         probe1 = pallas_floor.run("cuda")
         probe2 = d2.run("cuda")
         paths["probes"] = read_counts()
+        lap("probes")
         for name, r in (("D1 block_segment_sum", probe1),
                         ("D2 row_gather", probe2)):
             log(f"probe {name} at the TPU probe's shape: "
@@ -3519,16 +3719,26 @@ def main() -> int:
                         graph.rev_rowptr, cot)),
                     ("D1", lambda: block_segment_sum(
                         raw, graph.dst, graph.rowptr, "f32",
-                        weight=graph.weight))) + tuple(
-                    (f"K1 {p}", lambda p=p: segment_spmm(
-                        graph.src, graph.dst, graph.weight, graph.rowptr, x,
-                        p)) for p in K1_MODES):
+                        weight=graph.weight)),
+                    ("D1 bf16x", lambda: block_segment_sum(
+                        raw.to(torch.bfloat16), graph.dst, graph.rowptr,
+                        "f32", weight=graph.weight))) + tuple(
+                    (f"K1 {p} {dt}", lambda p=p, dt=dt: segment_spmm(
+                        graph.src, graph.dst, graph.weight, graph.rowptr,
+                        x.to(dt), p))
+                    for p in PRECISIONS
+                    for dt in (torch.float32, torch.bfloat16)) + tuple(
+                    (f"K1T {p}", lambda p=p: segment_spmm_transpose(
+                        graph.rev_src, graph.rev_dst, graph.rev_weight,
+                        graph.rev_rowptr, cot, p)) for p in K1_MODES):
                 if not torch.equal(rerun(), rerun()):
                     raise AssertionError(f"{kind} reruns at the slice shape "
                                          "differ")
-            log("determinism: two launches each of K1, K1T, D1 (f32, "
-                f"weighted) and K1 in {'/'.join(K1_MODES)} at the slice "
-                "shape equal bit for bit (K2, K2T: check_ell)")
+            lap("kernel checks at the slice shape")
+            log("determinism: two launches each of K1 in every precision "
+                "on f32 and bf16 x, K1T in every precision, D1 (f32 and "
+                "bf16x, weighted) at the slice shape equal bit for bit (K2, "
+                "K2T: check_ell; the edge cases: check_bf16_kernels)")
             case_rng = np.random.default_rng(SEED + 1)
             for name, s, d_, w, n_dst, n_src, dim in edge_case_graphs(case_rng):
                 g = build_graph(s, d_, w, n_dst, n_src, device=dev,
@@ -3553,17 +3763,20 @@ def main() -> int:
                 errs = check_xla_kernels(name, g, xc, gc, share_sizes=sizes)
                 e2 = check_ell(name, g, xc, gc)
                 k2_err, k2_err_t = max(k2_err, e2[0]), max(k2_err_t, e2[1])
-                for p, v in check_k1_modes(name, g, xc, gc).items():
+                for p, v in check_k1_modes(name, g, xc, gc, sizes).items():
                     mode_err[p] = max(mode_err[p], v)
-                merge_errs(bf16_err, check_bf16_kernels(name, g, g, xc, gc))
+                merge_errs(bf16_err, check_bf16_kernels(name, g, g, xc, gc,
+                                                        sizes))
                 if name in ("hub_rows", "rectangular", "multi_segment"):
                     errs = check_xla_kernels(f"{name} chunk={CHUNK}", g, xc,
                                              gc, chunk=CHUNK)
                 for k, v in errs.items():
                     xla_err[k] = max(xla_err[k], v)
                 del g, xc, gc
+                lap(f"kernel checks on {name}")
             e2 = check_ell_cases(case_rng, dev)
             k2_err, k2_err_t = max(k2_err, e2[0]), max(k2_err_t, e2[1])
+            lap("K2's non-finite and zero-weight cases")
 
             # 6. times at the slice shape: K1 beside its plain version and
             # the library call
@@ -3600,12 +3813,19 @@ def main() -> int:
                 graph.rev_src, graph.rev_dst, graph.rev_weight, cot,
                 graph.n_src_nodes)).abs().max())
             library_t_ms = time_cuda_ms(lambda: torch.sparse.mm(csr_t, cot))
-            # K1 in its other precisions, same graph and input
+            # K1 in its other precisions, same graph and input, and K1T
+            # in them on the f32 cotangent (packed: the pack pass inside)
             k1_modes = {p: {
                 "ms": time_cuda_ms(lambda p=p: segment_spmm(
                     graph.src, graph.dst, graph.weight, graph.rowptr, x, p)),
                 "plain_ms": time_cuda_ms(lambda p=p: segment_spmm_plain(
-                    graph.src, graph.dst, graph.weight, x, n, p))}
+                    graph.src, graph.dst, graph.weight, x, n, p)),
+                "t_ms": time_cuda_ms(lambda p=p: segment_spmm_transpose(
+                    graph.rev_src, graph.rev_dst, graph.rev_weight,
+                    graph.rev_rowptr, cot, p)),
+                "t_plain_ms": time_cuda_ms(lambda p=p: segment_spmm_plain(
+                    graph.rev_src, graph.rev_dst, graph.rev_weight, cot,
+                    graph.n_src_nodes, p))}
                 for p in K1_MODES}
             # K2 and K2T on the ell run's graph: beside the plain version,
             # torch.sparse.mm of the same CSR and K1 on the same graph
@@ -3690,8 +3910,20 @@ def main() -> int:
             if len(d1_us) != 2:
                 raise AssertionError(f"the profiler saw {d1_us} per D1 call; "
                                      "expected 2 device kernels")
+            # K1 packed's three device kernels (the pack pass, the share
+            # pass, the carry pass), after every other profile: a long
+            # process's later profiler sessions may keep fewer records
+            pack_us = {kind: device_us_by_kernel(fn, kernels=3) for kind, fn
+                       in (("K1", lambda: segment_spmm(
+                               graph.src, graph.dst, graph.weight,
+                               graph.rowptr, x, "packed")),
+                           ("K1T", lambda: segment_spmm_transpose(
+                               graph.rev_src, graph.rev_dst,
+                               graph.rev_weight, graph.rev_rowptr, cot,
+                               "packed")))}
             # the host's time per wrapper call, which the event times
             # leave out
+            raw_b = raw.to(torch.bfloat16)
             host_us = {k: host_us_per_call(fn, dev) for k, fn in (
                 ("segment_spmm", lambda: segment_spmm(
                     graph.src, graph.dst, graph.weight, graph.rowptr, x)),
@@ -3702,7 +3934,13 @@ def main() -> int:
                 ("block_segment_sum", lambda: block_segment_sum(
                     *d1_w, weight=w)),
                 ("xla_spmm", lambda: xla_spmm(
-                    graph.src, graph.dst, graph.weight, graph.rowptr, x)))}
+                    graph.src, graph.dst, graph.weight, graph.rowptr, x)))
+                + tuple((f"segment_spmm {p}", lambda p=p: segment_spmm(
+                    graph.src, graph.dst, graph.weight, graph.rowptr, x, p))
+                        for p in K1_MODES)
+                + (("block_segment_sum bf16x", lambda: block_segment_sum(
+                    raw_b, graph.dst, graph.rowptr, "f32", weight=w)),)}
+            del raw_b
             msgs = raw * w[:, None]
             acc = torch.zeros(n, EMBEDDING_SIZE, device=dev)
             d1_index_add_ms = time_cuda_ms(
@@ -3789,7 +4027,39 @@ def main() -> int:
                       lambda: block_segment_sum_plain(
                           rawb, graph.dst, graph.rowptr, "f32", weight=w),
                       pallas_floor.work(rawb, graph.rowptr, weighted=True))
-            del xb, cb, rawb
+            for p in K1_MODES:
+                bf16_mode("segment_spmm_transpose", f"bf16x_{p}",
+                          lambda p=p: segment_spmm_transpose(
+                              graph.rev_src, graph.rev_dst, graph.rev_weight,
+                              graph.rev_rowptr, cb, p),
+                          lambda p=p: segment_spmm_plain(
+                              graph.rev_src, graph.rev_dst, graph.rev_weight,
+                              cb, n_src, p),
+                          spmm_bytes(n_src, n, e_all, n_src + 1,
+                                     EMBEDDING_SIZE, x_bytes=2))
+            # the one-call yardsticks on bf16 values: torch.sparse.mm of
+            # the bf16 CSR on the bf16 rows (K1, K1T, K2, K2T; D1: of the
+            # weights' CSR on the bf16 messages), index_select for D2
+            wb = w.to(torch.bfloat16)
+            e_w = eg.weight[:e_nnz].to(torch.bfloat16)
+            library_bf16 = {k: library_call(fn) for k, fn in (
+                ("segment_spmm", lambda c=sorted_csr(
+                    graph.dst[:nnz], graph.src[:nnz], wb[:nnz], n,
+                    n_src): torch.sparse.mm(c, xb)),
+                ("segment_spmm_transpose", lambda c=sorted_csr(
+                    graph.src[:nnz], graph.dst[:nnz], wb[:nnz], n_src,
+                    n): torch.sparse.mm(c, cb)),
+                ("ell_spmm", lambda c=sorted_csr(
+                    eg.dst[:e_nnz], eg.src[:e_nnz], e_w, eg.n_nodes,
+                    eg.n_src_nodes): torch.sparse.mm(c, xb)),
+                ("ell_spmm_transpose", lambda c=sorted_csr(
+                    eg.src[:e_nnz], eg.dst[:e_nnz], e_w, eg.n_src_nodes,
+                    eg.n_nodes): torch.sparse.mm(c, cb)),
+                ("block_segment_sum", lambda c=torch.sparse_csr_tensor(
+                    graph.rowptr, torch.arange(rawb.shape[0], device=dev),
+                    wb, size=(n, rawb.shape[0])): torch.sparse.mm(c, rawb)),
+                ("row_gather", lambda: xb.index_select(0, graph.src)))}
+            del xb, cb, rawb, wb, e_w
 
             # K1 on the same n and nnz without the hub rows (uniform) and
             # without the padding tail: what the row degrees cost it
@@ -3810,6 +4080,7 @@ def main() -> int:
                 model.propagate(params, model.consts, {})
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
+        lap("timings at the slice shape")
 
         # 7. the general family on ell, each at its published settings,
         # after every profiled kernel split above and in a process of
@@ -3864,10 +4135,14 @@ def main() -> int:
         f"bytes, {flops_t} flops); row gathers {gathered} bytes at "
         f"{gathered / kernel_t_ms / 1e9:.3f} TB/s; {N_LAYERS} launches "
         f"per step, {N_LAYERS * steps} per epoch")
-    log("segment_spmm (K1) precisions at the slice shape: " + "; ".join(
-        f"{p} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-        f"max_abs_err {mode_err[p]:.3e}" for p, r in k1_modes.items())
-        + f"; f32x2 kernel {kernel_ms:.4f} ms")
+    log("segment_spmm (K1) precisions at the slice shape (packed: the "
+        "pack pass inside): " + "; ".join(
+            f"{p} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms, "
+            f"K1T kernel {r['t_ms']:.4f} ms plain {r['t_plain_ms']:.4f} ms, "
+            f"max_abs_err {mode_err[p]:.3e}" for p, r in k1_modes.items())
+        + f"; f32x2 kernel {kernel_ms:.4f} ms, K1T {kernel_t_ms:.4f} ms; "
+        "packed device us per call by kernel (torch.profiler, 20 calls, L2 "
+        f"warm): {json.dumps(pack_us)}")
     el = eg.ell
     log(f"ell layout at the slice shape: {eg.nnz} edges, e_pad "
         f"{el.e_padded} ({el.e_padded / eg.nnz:.3f}x), {el.n_vrows} virtual "
@@ -3925,6 +4200,9 @@ def main() -> int:
             f"bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes)"
             for k, ms in bf16_modes.items() for m, r in ms.items()))
     log("bf16-x max_abs_err (slice and edge cases): " + json.dumps(bf16_err))
+    log("bf16-x one-call yardsticks at the slice shape (torch.sparse.mm on "
+        "bf16 values; D2: index_select of bf16 rows): "
+        + json.dumps(library_bf16))
     log("host us per wrapper call (host clock, 50 calls back to back, no "
         f"sync between them): {json.dumps(host_us)}")
     log(f"launches by path: {json.dumps(paths)}")
@@ -3942,7 +4220,9 @@ def main() -> int:
                 for k, src in (("ms", "ms"), ("plain_ms", "plain_ms"),
                                ("bound_ms", "bound_ms"),
                                ("bound_by", "bound_by"))} | {
-            "modes_max_abs_err": {**base.get("max_abs_err", {}), **errs}}
+            "modes_max_abs_err": {**base.get("max_abs_err", {}), **errs},
+            "library_bf16x_ms": library_bf16[kernel]["ms"],
+            "library_bf16x_error": library_bf16[kernel]["error"]}
 
     def in_step(path, wrapper):
         prof = profiles[path]
@@ -4006,7 +4286,12 @@ def main() -> int:
              f"bf16x_{p}": e for p, e in bf16_err["segment_spmm"].items()},
              {"ms": {p: r["ms"] for p, r in k1_modes.items()},
               "plain_ms": {p: r["plain_ms"] for p, r in k1_modes.items()},
-              "max_abs_err": mode_err})},
+              "max_abs_err": mode_err}),
+         "packed_device_us_by_kernel": pack_us["K1"],
+         "modes_host_us_per_call": {p: host_us[f"segment_spmm {p}"]
+                                    for p in K1_MODES},
+         "share_pass_usage": {k: u for k, u in share_usage.items()
+                              if k.startswith("K1")}},
         {"name": "segment_spmm_transpose", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
          "replaces": "recbole_gnn_tpu/ops/spmm.py:339",
@@ -4025,7 +4310,12 @@ def main() -> int:
          "gathered_tb_per_s": gathered / kernel_t_ms / 1e9,
          "in_step_us_per_launch": in_step("pallas", "segment_spmm"),
          **bf16_entry("segment_spmm_transpose", {
-             "bf16x_f32x2": bf16_err["segment_spmm_transpose"]})},
+             f"bf16x_{p}": e
+             for p, e in bf16_err["segment_spmm_transpose"].items()},
+             {"ms": {p: r["t_ms"] for p, r in k1_modes.items()},
+              "plain_ms": {p: r["t_plain_ms"] for p, r in k1_modes.items()},
+              "max_abs_err": mode_err}),
+         "packed_device_us_by_kernel": pack_us["K1T"]},
         {"name": "row_gather", "route": "cuda",
          "source": "recbole_gnn_tpu_torch/csrc/row_gather.cu",
          "replaces": "scripts/diag/r3_sparse_probe4.py:98",
@@ -4067,7 +4357,11 @@ def main() -> int:
               "plain_ms": {m: r["plain_ms"] for m, r in d1.items()}}),
          "probe_shape": {"bound_ms": probe1["bound_ms"],
                          "library_ms": probe1["library_ms"],
-                         "modes": probe1["modes"]}},
+                         "modes": probe1["modes"]},
+         "modes_host_us_per_call": {
+             "bf16x_f32_weighted": host_us["block_segment_sum bf16x"]},
+         "share_pass_usage": {k: u for k, u in share_usage.items()
+                              if k.startswith("D1")}},
         k2_entry("K2", "ell_spmm", "recbole_gnn_tpu/ops/ell_spmm.py:325",
                  "ell_spmm / bucket_gather_sum / _bucket_sum (an XLA "
                  "composition, no pallas_call)",
@@ -4075,6 +4369,8 @@ def main() -> int:
         k2_entry("K2T", "ell_spmm_transpose", "recbole_gnn_tpu/ops/spmm.py:336",
                  "_spmm_core_bwd (ell_spmm over rev_ell)",
                  sum(paths[p]["ell_spmm_transpose"] for p in ell_paths)),
+        k7a_entry(parallel["summary"]["shards"], paths),
+        k7b_entry(parallel["summary"]["topk_alone"], paths),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

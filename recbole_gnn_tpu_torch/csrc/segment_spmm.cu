@@ -84,6 +84,25 @@
 //            where a row's (or a share's part of a row's) sum is
 //            written, so a split row's carries hold mh + ml sums.
 //
+// The packed table.  The x side of a packed term depends on the row
+// only, and a row is gathered E/N times (24 at the LightGCN slice
+// shape), so it is formed once per call, as the TPU kernel's wrapper
+// packs x once (_hi_lo_bits, pallas_spmm.py:385-388): pack_kernel
+// writes x~ = hi + lo for every element of an f32 x into a workspace of
+// x's shape, and the share pass gathers x~ where it gathered x.  The
+// sum is exact in f32 (each part has at most 8 significant bits and lo
+// lies below hi's last bit), so a term is bit for bit what the split per
+// gathered element gave: one product, one truncation, one subtraction,
+// half a paired rounding and two adds.  bf16 and packed round in pairs
+// (__floats2bfloat162_rn, one conversion for two values, to nearest
+// even as one at a time); bf16 on a bf16 x multiplies in pairs of bf16
+// values (__hmul2).  Every instance keeps the bound on threads alone
+// and ptxas's own registers (the f32x2 instance's 64, four 256-thread
+// blocks on an SM at D = 64; packed on an f32 x 78, three): holding
+// packed to 64 spilled 40 bytes a thread for 1.2 % (PERF.md), and
+// rolling each piece's next gather in as soon as its term was added
+// ran slower in every mode.
+//
 // bf16 x (activation_dtype: bfloat16): the kernel reads the bf16 rows
 // itself (rows.cuh: 16-byte loads of 8 values where the row allows; no
 // f32 copy of x is made) and writes an f32 output, as the TPU kernel
@@ -91,14 +110,21 @@
 // a bf16 x: f32x2 and bf16 take the weight rounded to bf16
 // (w.astype(x.dtype)); f32x2 adds the product of the two bf16 values,
 // exact in f32 (two 8-bit significands make at most 16), and bf16 adds
-// that product rounded to bf16; packed
-// casts x to f32 (hi = x, lo = 0) and multiplies by the f32 weight, then
-// splits m as above.  The transpose gets an f32 cotangent (the forward's
-// output type) and runs the f32 kernel.
+// that product rounded to bf16; packed casts x to f32 (hi = x, lo = 0)
+// and multiplies by the f32 weight, then splits m as above.  So a bf16
+// x needs no pack: the share pass reads it as it is, x~ = x.  (Where x
+// is -0 the split makes x~ +0, and a term may be a zero of the other
+// sign, which no f32 sum from +0 can show; where x is infinite the split
+// makes x~ NaN and this reads x~ = inf, whose term's lo part, bf16(inf -
+// inf), is NaN all the same, and so is the row's output.)  The transpose
+// gets an f32 cotangent (the forward's output type), packs it and runs
+// the f32 kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "rows.cuh"
 
@@ -108,6 +134,7 @@ constexpr int kGroups = 16;       // shares (lane groups) per block
 constexpr int kUnroll = 8;        // row gathers in flight per lane group
 constexpr int kFixThreads = 256;  // threads per block of the carry pass
 constexpr int kCarryRows = 8;     // rows per lane group of the carry pass
+constexpr int kPackThreads = 256; // threads per block of the pack pass
 constexpr int kMaxSmem = 232448;  // what a block may use on H100
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kF32 = 0, kBf16 = 1, kPacked = 2;  // precision modes
@@ -119,27 +146,66 @@ __device__ __forceinline__ float bf16_trunc(float v) {
   return __int_as_float(__float_as_int(v) & 0xffff0000);
 }
 
+// the packed value of one f32 element: hi + lo, hi = trunc(v), lo =
+// bf16(v - hi); exact in f32
+__device__ __forceinline__ float pack1(float v) {
+  const float h = bf16_trunc(v);
+  return __fadd_rn(h, bf16_rn(__fsub_rn(v, h)));
+}
+
 // acc (and, in packed mode, lo) += the term of weight wt on the x piece
-// v (x's element type T; a bf16 x's weight is rounded to bf16 but in
-// packed mode)
+// v (x's element type T: the packed table x~ in packed mode, or a bf16 x
+// as it is; a bf16 x's weight is rounded to bf16 but in packed mode).
+// The bf16 roundings go in pairs.  A bf16 x in bf16 mode: the term
+// bf16(bf16(w) * x), a product of two bf16 values, taken by the bf16
+// multiply (__hmul2, round to nearest even), which gives the same bits as
+// the f32 product rounded once (two 8-bit significands make at most 16,
+// exact in f32).
 template <int MODE, typename T, int VEC>
 __device__ __forceinline__ void add_term(float* acc, float* lo, float wt,
                                          const rows::Piece<T, VEC>& v) {
-  if constexpr (sizeof(T) == 2 && MODE != kPacked) wt = bf16_rn(wt);
+  if constexpr (sizeof(T) == 2 && MODE == kBf16 && VEC > 1) {
+    const __nv_bfloat162 w2 = __float2bfloat162_rn(wt);
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) {
-    const float xk = v.get(k);
-    if constexpr (MODE == kF32) {
-      acc[k] += wt * xk;
-    } else if constexpr (MODE == kBf16) {
-      acc[k] += bf16_rn(__fmul_rn(wt, xk));
+    for (int k = 0; k < VEC; k += 2) {
+      const __nv_bfloat162 m2 =
+          *reinterpret_cast<const __nv_bfloat162*>(&v.r.w[k >> 1]);
+      const float2 q = __bfloat1622float2(__hmul2(w2, m2));
+      acc[k] += q.x;
+      acc[k + 1] += q.y;
+    }
+    return;
+  }
+  if constexpr (sizeof(T) == 2 && MODE != kPacked) wt = bf16_rn(wt);
+  if constexpr (MODE == kF32) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] += wt * v.get(k);
+  } else {
+    // r: what is rounded to bf16 and added to sum: the product (bf16),
+    // or what its truncation leaves (packed, whose truncation goes to acc)
+    float r[VEC];
+    float* const sum = MODE == kPacked ? lo : acc;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float m = __fmul_rn(v.get(k), wt);
+      if constexpr (MODE == kPacked) {
+        const float mh = bf16_trunc(m);
+        acc[k] += mh;
+        r[k] = __fsub_rn(m, mh);
+      } else {
+        r[k] = m;
+      }
+    }
+    if constexpr (VEC == 1) {
+      sum[0] += bf16_rn(r[0]);
     } else {
-      const float xh = bf16_trunc(xk);
-      const float xl = bf16_rn(__fsub_rn(xk, xh));
-      const float m = __fmul_rn(__fadd_rn(xh, xl), wt);
-      const float mh = bf16_trunc(m);
-      acc[k] += mh;
-      lo[k] += bf16_rn(__fsub_rn(m, mh));
+#pragma unroll
+      for (int k = 0; k < VEC; k += 2) {
+        const float2 q =
+            __bfloat1622float2(__floats2bfloat162_rn(r[k], r[k + 1]));
+        sum[k] += q.x;
+        sum[k + 1] += q.y;
+      }
     }
   }
 }
@@ -389,6 +455,35 @@ carry_sum_kernel(const int64_t* __restrict__ rowptr,
   }
 }
 
+// the packed table of an f32 x: xp[i] = pack1(x[i]) for its n values,
+// four at a time where both are 16-byte aligned (vec4)
+__global__ void __launch_bounds__(kPackThreads)
+pack_kernel(const float* __restrict__ x, float* __restrict__ xp, int64_t n,
+            int vec4) {
+  const int64_t stride = (int64_t)gridDim.x * kPackThreads;
+  const int64_t i = (int64_t)blockIdx.x * kPackThreads + threadIdx.x;
+  const int64_t n4 = vec4 ? n / 4 : 0;
+  for (int64_t j = i; j < n4; j += stride) {
+    float4 v = __ldg(reinterpret_cast<const float4*>(x) + j);
+    v.x = pack1(v.x);
+    v.y = pack1(v.y);
+    v.z = pack1(v.z);
+    v.w = pack1(v.w);
+    reinterpret_cast<float4*>(xp)[j] = v;
+  }
+  for (int64_t j = 4 * n4 + i; j < n; j += stride) xp[j] = pack1(__ldg(x + j));
+}
+
+int launch_pack(const float* x, float* xp, long long n, cudaStream_t st) {
+  if (n == 0) return (int)cudaSuccess;
+  const int vec4 = (((uintptr_t)x | (uintptr_t)xp) & 15) == 0;
+  const long long items = vec4 ? (n + 3) / 4 : n;
+  long long blocks = (items + kPackThreads - 1) / kPackThreads;
+  if (blocks > 4096) blocks = 4096;  // then each thread strides
+  pack_kernel<<<(unsigned)blocks, kPackThreads, 0, st>>>(x, xp, n, vec4);
+  return (int)cudaGetLastError();
+}
+
 int lanes_for(int d, int vec) {
   int need = (d + vec - 1) / vec;
   int L = 1;
@@ -396,28 +491,46 @@ int lanes_for(int d, int vec) {
   return L;
 }
 
+// the share pass's launch for rows of d elements, vec per lane, in
+// shares of t edges: kGroups lane groups of L lanes a block, and the
+// block's src, w and dst staged in shared memory
+struct ShareLayout {
+  int L, threads;
+  size_t smem;
+};
+
+ShareLayout share_layout(int d, int vec, int t) {
+  const int L = lanes_for(d, vec);
+  return {L, kGroups * L, (size_t)3 * kGroups * t * sizeof(uint32_t)};
+}
+
+// lets the share pass's instance fn take more than the default 48 KB of
+// dynamic shared memory where the layout needs it; a cudaError_t
+int allow_smem(const void* fn, const ShareLayout& l) {
+  if (l.smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+}
+
 template <typename T, int VEC, int MODE>
 int launch(const void* x, const int32_t* sp, const float* wp,
            const int32_t* dp, const int64_t* rp, float* op, float* cp,
-           long long n_rows, long long n_edges, int d, int t, int L,
+           long long n_rows, long long n_edges, int d, int t,
            int aligned16, cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
+  const ShareLayout l = share_layout(d, VEC, t);
+  const int L = l.L;
   const long long n_shares = (n_edges + t - 1) / t;
   if (n_shares > 0) {
     const long long blocks = (n_shares + kGroups - 1) / kGroups;
-    const size_t smem = (size_t)3 * kGroups * t * sizeof(uint32_t);
-    if (blocks > 0x7fffffffLL || smem > (size_t)kMaxSmem)
+    if (blocks > 0x7fffffffLL || l.smem > (size_t)kMaxSmem)
       return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          share_sum_kernel<VEC, MODE, T>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    share_sum_kernel<VEC, MODE><<<(unsigned)blocks, kGroups * L, smem, st>>>(
+    const int err = allow_smem((const void*)share_sum_kernel<VEC, MODE, T>, l);
+    if (err != (int)cudaSuccess) return err;
+    share_sum_kernel<VEC, MODE><<<(unsigned)blocks, l.threads, l.smem, st>>>(
         xp, sp, wp, dp, rp, op, cp, n_rows, n_edges, d, t, L, aligned16);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t err2 = cudaGetLastError();
+    if (err2 != cudaSuccess) return (int)err2;
   }
   const long long rows_per_block =
       (long long)(kFixThreads / L) * (L < kCarryRows ? L : kCarryRows);
@@ -428,22 +541,46 @@ int launch(const void* x, const int32_t* sp, const float* wp,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
-int launch_mode(int mode, const void* xp, const int32_t* sp,
-                const float* wp, const int32_t* dp, const int64_t* rp,
-                float* op, float* cp, long long n_rows, long long n_edges,
-                int d, int t, int L, int aligned16, cudaStream_t st) {
-  switch (mode) {
-    case kBf16:
-      return launch<T, VEC, kBf16>(xp, sp, wp, dp, rp, op, cp, n_rows,
-                                   n_edges, d, t, L, aligned16, st);
-    case kPacked:
-      return launch<T, VEC, kPacked>(xp, sp, wp, dp, rp, op, cp, n_rows,
-                                     n_edges, d, t, L, aligned16, st);
-    default:
-      return launch<T, VEC, kF32>(xp, sp, wp, dp, rp, op, cp, n_rows,
-                                  n_edges, d, t, L, aligned16, st);
+template <typename T>
+struct Tag {
+  using type = T;
+};
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(Tag<T>{}, Int<VEC>{}, Int<MODE>{}) for the share pass's instance of
+// (bf16, vec, mode): the one place that maps them to template arguments
+template <typename F>
+int dispatch(int bf16, int vec, int mode, F&& f) {
+  auto by_mode = [&](auto tag, auto v) {
+    switch (mode) {
+      case kBf16: return f(tag, v, Int<kBf16>{});
+      case kPacked: return f(tag, v, Int<kPacked>{});
+      default: return f(tag, v, Int<kF32>{});
+    }
+  };
+  using Bf = Tag<__nv_bfloat16>;
+  using Fp = Tag<float>;
+  if (bf16) {
+    switch (vec) {
+      case 8: return by_mode(Bf{}, Int<8>{});
+      case 4: return by_mode(Bf{}, Int<4>{});
+      case 2: return by_mode(Bf{}, Int<2>{});
+      default: return by_mode(Bf{}, Int<1>{});
+    }
   }
+  switch (vec) {
+    case 4: return by_mode(Fp{}, Int<4>{});
+    case 2: return by_mode(Fp{}, Int<2>{});
+    default: return by_mode(Fp{}, Int<1>{});
+  }
+}
+
+bool bad_args(long long d, int vec, int share_edges, int mode, int bf16) {
+  const int max_vec = bf16 ? 8 : 4;
+  return d <= 0 || share_edges <= 0 || vec < 1 || vec > max_vec ||
+         (vec & (vec - 1)) != 0 || d % vec != 0 || mode < kF32 ||
+         mode > kPacked || (bf16 != 0 && bf16 != 1);
 }
 
 }  // namespace
@@ -451,24 +588,24 @@ int launch_mode(int mode, const void* xp, const int32_t* sp,
 // x (n_in, d) f32 (bf16 == 0) or bf16 (bf16 == 1), src/dst (n_edges,)
 // int32 with dst sorted, w (n_edges,) f32, rowptr (n_rows + 1,) int64
 // the CSR row pointer of dst, out (n_rows, d) f32, carry
-// (ceil(n_edges / share_edges), 2, d) f32 scratch.  vec: the elements of
-// each x/out/carry access (f32: 1, 2 or 4; bf16: 1, 2, 4 or 8; d % vec
-// == 0, x aligned to vec elements, out to vec floats).  mode: 0 f32, 1
-// bf16, 2 packed (the header).  Launches the share pass and the carry
-// pass on `stream`; returns a cudaError_t.
+// (ceil(n_edges / share_edges), 2, d) f32 scratch, xpack (n_in, d) f32
+// scratch for the packed table of an f32 x in packed mode (else
+// unused, may be null).  vec: the elements of each x/out/carry access
+// (f32: 1, 2 or 4; bf16: 1, 2, 4 or 8; d % vec == 0, x and xpack aligned
+// to vec elements, out to vec floats).  mode: 0 f32, 1 bf16, 2 packed
+// (the header).  Launches, on `stream`, the pack pass (packed mode, f32
+// x), the share pass and the carry pass; returns a cudaError_t.
 extern "C" int segment_spmm_launch(const void* x, const void* src,
                                    const void* w, const void* dst,
                                    const void* rowptr, void* out, void* carry,
-                                   long long n_rows, long long n_edges, int d,
+                                   void* xpack, long long n_rows,
+                                   long long n_in, long long n_edges, int d,
                                    int vec, int share_edges, int mode,
                                    int bf16, void* stream) {
-  const int max_vec = bf16 ? 8 : 4;
-  if (n_rows < 0 || n_edges < 0 || d <= 0 || share_edges <= 0 || vec < 1 ||
-      vec > max_vec || (vec & (vec - 1)) != 0 || d % vec != 0 ||
-      mode < kF32 || mode > kPacked || (bf16 != 0 && bf16 != 1))
+  if (n_rows < 0 || n_in < 0 || n_edges < 0 ||
+      bad_args(d, vec, share_edges, mode, bf16))
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
-  const int L = lanes_for(d, vec);
   const int aligned16 =
       (((uintptr_t)src | (uintptr_t)w | (uintptr_t)dst) & 15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -478,21 +615,50 @@ extern "C" int segment_spmm_launch(const void* x, const void* src,
   const int64_t* rp = static_cast<const int64_t*>(rowptr);
   float* op = static_cast<float*>(out);
   float* cp = static_cast<float*>(carry);
-#define SEG_LAUNCH(T, V)                                                  \
-  launch_mode<T, V>(mode, x, sp, wp, dp, rp, op, cp, n_rows, n_edges, d, \
-                    share_edges, L, aligned16, st)
-  if (bf16) {
-    switch (vec) {
-      case 8: return SEG_LAUNCH(__nv_bfloat16, 8);
-      case 4: return SEG_LAUNCH(__nv_bfloat16, 4);
-      case 2: return SEG_LAUNCH(__nv_bfloat16, 2);
-      default: return SEG_LAUNCH(__nv_bfloat16, 1);
-    }
+  if (mode == kPacked && !bf16) {  // the share pass gathers the table
+    if (xpack == nullptr) return (int)cudaErrorInvalidValue;
+    const int err = launch_pack(static_cast<const float*>(x),
+                                static_cast<float*>(xpack), n_in * d, st);
+    if (err != (int)cudaSuccess) return err;
+    x = xpack;
   }
-  switch (vec) {
-    case 4: return SEG_LAUNCH(float, 4);
-    case 2: return SEG_LAUNCH(float, 2);
-    default: return SEG_LAUNCH(float, 1);
-  }
-#undef SEG_LAUNCH
+  return dispatch(bf16, vec, mode, [&](auto tag, auto v, auto m) {
+    return launch<typename decltype(tag)::type, decltype(v)::value,
+                  decltype(m)::value>(x, sp, wp, dp, rp, op, cp, n_rows,
+                                      n_edges, d, share_edges, aligned16, st);
+  });
+}
+
+// What the share pass's instance for (mode, bf16, vec) uses, launched
+// for rows of d elements in shares of share_edges: info[0] its registers
+// per thread, info[1] its local memory per thread in bytes (stack and
+// spills), info[2] its resident blocks per SM (the occupancy API, with
+// the launch's threads and shared memory), info[3] its threads per
+// block.  Returns a cudaError_t.
+extern "C" int segment_spmm_share_usage(int mode, int bf16, int vec, int d,
+                                        int share_edges, int* info) {
+  if (bad_args(d, vec, share_edges, mode, bf16) || info == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  dispatch(bf16, vec, mode, [&](auto tag, auto v, auto m) {
+    fn = (const void*)share_sum_kernel<decltype(v)::value, decltype(m)::value,
+                                       typename decltype(tag)::type>;
+    return 0;
+  });
+  const ShareLayout l = share_layout(d, vec, share_edges);
+  if (l.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  err = (cudaError_t)allow_smem(fn, l);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, l.threads,
+                                                      l.smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = blocks;
+  info[3] = l.threads;
+  return (int)cudaSuccess;
 }

@@ -66,7 +66,8 @@
 //
 // Staging: messages are contiguous in edge order, so the share pass is
 // a pure stream.  Each warp owns a ring of kStages stages in shared
-// memory; a slab is the next R edges of its share (R*D*4 ~ kSlabBytes),
+// memory; a slab is the next R edges of its share (R*D*4 ~ kSlabBytes
+// for f32 messages, R*D*2 for bf16),
 // their dst and weights.  Lane 0 loads slab k + kStages - 1 with TMA's
 // 1-D bulk copy (cp.async.bulk, completion counted on the stage's
 // mbarrier) before the warp sums slab k; the slab's dst and weights are
@@ -79,25 +80,35 @@
 // w.astype(bf16) and bf16 segment_sum), mode 0 with the edge weight
 // only: the term of message element m is bf16(bf16(w) * m) (the weight
 // rounded to bf16, the product rounded to bf16, as the JAX composition
-// forms it), summed in f32; each output element is rounded to bf16
-// once (out = bf16(sum), or bf16(out + sum) when accumulating).  A
-// simple schedule of its own, on the same equal edge shares: one lane
-// group per share (L lanes of VEC bf16 values, 16-byte loads of 8 where
-// the row allows) reads its messages, dst and weights from global
-// memory with kUnroll rows in flight, no staging; a row inside one
-// share is written by it, the partial sums of a row that crosses a
-// share boundary go to the share's carry slot 0 (its first row) or 1
-// (its last row) in an f32 workspace of n_shares x 2 x D, and the
-// carry pass above (with shares of T edges) sums them in share order
-// into the bf16 output.  The other modes and stream mode take f32
+// forms it; the products of a lane rounded in pairs with one conversion
+// each), summed in f32; each output element is rounded to bf16 once (out
+// = bf16(sum), or bf16(out + sum) when accumulating), by the share pass,
+// the combine of a block's parts or the carry pass, whichever writes it.
+// They take the same share pass, ring and carries as f32 messages: a
+// slab holds R edges of R*D*2 bytes (~kSlabBytesBf16 = 4 KB: 32 rows at
+// D = 64, as for f32), lanes multiply the staged bf16 pieces by the
+// rounded weight in pairs of bf16 values (__hmul2, round to nearest
+// even: the f32 product of two bf16 values rounded once, bit for bit)
+// and widen the products in registers; partial sums and carries stay
+// f32.  A warp's ring is half an f32 one, so the bf16 instances are
+// held to 128 registers and four 4-warp blocks share an SM (f32: two):
+// the pass waits on each warp's chain of dependent instructions per
+// edge, not on the bytes, and more warps hide more of it.  Where a bf16
+// row is not a multiple of 16 bytes (D % 8 != 0), or an input is not
+// 16-byte aligned, cp.async copies the slab, the 2-byte values at its
+// ends (or all of it, where the two sides do not agree modulo 4) by
+// plain loads and stores.  The other modes and stream mode take f32
 // messages only.
-//
+
 // Stream mode keeps its per-block definition and layout: one CTA per
 // block stages the covered chunks through shared memory in kStageBytes
 // tiles with cp.async, double-buffered, and adds the placeholder rows
 // from the staged tiles, so its time is the stream's.
 //
-// Tried and dropped at the LightGCN slice's shape (PERF.md): deeper rings
+// Tried and dropped at the LightGCN slice's shape (PERF.md): for bf16
+// messages, 8 KB slabs at two blocks per SM (0.20 ms against 0.139) and
+// 3 KB slabs at five (the same as 4 KB at four), the f32 product
+// rounded in pairs in place of the bf16 multiply (4 % slower); deeper rings
 // (more slabs in flight per warp, fewer warps per SM), which were
 // slower; cp.async staging for every input, slower than TMA there; a
 // persistent grid (warps, or blocks, taking shares in turn), which was
@@ -120,6 +131,10 @@ namespace {
 constexpr int kWarps = 4;           // shares (warps) per share-pass block
 constexpr int kStages = 3;          // slabs in each warp's ring
 constexpr int kSlabBytes = 8192;    // message bytes of one slab (rows % 4 == 0)
+// bf16 messages: the slab's message bytes, and the share pass's blocks
+// per SM in its __launch_bounds__ (f32: kSlabBytes and 2)
+constexpr int kSlabBytesBf16 = 4096;
+constexpr int kMinBlocksBf16 = 4;
 constexpr int kPad = 8;             // dst/weight words beyond a slab's rows
 constexpr int kMaxPass = 4;         // column passes summed in one walk
 constexpr int kFixThreads = 256;    // threads per block of the carry pass
@@ -161,6 +176,28 @@ __device__ __forceinline__ void add_terms(float* acc, const float* v,
         acc[q] += hi.x + lo.x;
         acc[q + 1] += hi.y + lo.y;
       }
+    }
+  }
+}
+
+// acc[q] += bf16(w * m[q]) for one lane's VEC bf16 message elements at m
+// (shared memory), w2 the weight rounded to bf16 in both halves: the
+// product of two bf16 values taken by the bf16 multiply (__hmul2, round
+// to nearest even), the same bits as the f32 product rounded once (two
+// 8-bit significands make at most 16, exact in f32)
+template <int VEC>
+__device__ __forceinline__ void add_terms_bf16w(float* acc,
+                                                const __nv_bfloat16* m,
+                                                __nv_bfloat162 w2) {
+  if constexpr (VEC == 1) {
+    acc[0] += __bfloat162float(__hmul(w2.x, m[0]));
+  } else {
+    const __nv_bfloat162* m2 = reinterpret_cast<const __nv_bfloat162*>(m);
+#pragma unroll
+    for (int q = 0; q < VEC; q += 2) {
+      const float2 t = __bfloat1622float2(__hmul2(w2, m2[q >> 1]));
+      acc[q] += t.x;
+      acc[q + 1] += t.y;
     }
   }
 }
@@ -243,6 +280,36 @@ __device__ __forceinline__ void warp_copy(void* s, const void* g, int n,
     cp_async4(sa + 4 * i, gp + 4 * i);
 }
 
+// one warp copies n 2-byte values at g into shared memory at s: the
+// 4-byte words through warp_copy where s and g agree modulo 4 (a value
+// at either end by a plain load and store), every value that way where
+// they do not
+__device__ __forceinline__ void warp_copy_half(void* s, const void* g, int n,
+                                               int lane) {
+  unsigned short* sp = static_cast<unsigned short*>(s);
+  const unsigned short* gp = static_cast<const unsigned short*>(g);
+  if (((smem_addr(s) ^ (unsigned)(uintptr_t)g) & 3u) != 0) {
+    for (int i = lane; i < n; i += 32) sp[i] = gp[i];
+    return;
+  }
+  const int head = ((uintptr_t)g & 3u) && n > 0 ? 1 : 0;
+  const int words = (n - head) >> 1;
+  if (lane == 0 && head) sp[0] = gp[0];
+  warp_copy(sp + head, gp + head, words, lane);
+  if (lane == 0 && head + 2 * words < n)
+    sp[head + 2 * words] = gp[head + 2 * words];
+}
+
+// n message elements of type T (float or bf16) from g to shared s
+template <typename T>
+__device__ __forceinline__ void copy_elems(void* s, const T* g, int n,
+                                           int lane) {
+  if constexpr (sizeof(T) == 4)
+    warp_copy(s, g, n, lane);
+  else
+    warp_copy_half(s, g, n, lane);
+}
+
 // mbarrier and 1-D bulk copy (TMA) helpers
 __device__ __forceinline__ void bar_init(unsigned bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
@@ -305,33 +372,48 @@ __device__ __forceinline__ void put_t(T* o, const float* acc, bool add) {
   rows::store_f32<T, VEC>(o, v);
 }
 
+// out element o = sum, or o + sum when accumulating, narrowed to T once
+template <typename T>
+__device__ __forceinline__ void put1(T* o, float sum, bool add) {
+  if constexpr (sizeof(T) == 4)
+    *o = add ? *o + sum : sum;
+  else
+    *o = __float2bfloat16_rn(add ? __bfloat162float(*o) + sum : sum);
+}
+
 // The share pass: warp s of the grid sums share s, and block c combines
-// the partial sums of its warps' split rows (see the header).  Shared
+// the partial sums of its warps' split rows (see the header).  T: the
+// message and output type (float, or bf16 in mode kF32W).  Shared
 // memory per warp: kStages mbarriers (16 bytes each), then kStages
-// slabs, each [R][d] messages and R + kPad dst words (and as many
-// weights); a slab's dst/weight word i is edge db + i, db = its first
-// edge rounded down to a multiple of 4, so that whole 16-byte pieces
-// can be bulk-copied around any edge range.  Then, per block, 2 partial
-// sums of d floats per warp and their rows.
-template <int VEC, int MODE>
-__global__ void __launch_bounds__(kWarps * 32, 2)
-share_sum_kernel(const float* __restrict__ msgs,
+// slabs, each [R][d] messages (rounded up to 16 bytes) and R + kPad dst
+// words (and as many weights); a slab's dst/weight word i is edge db +
+// i, db = its first edge rounded down to a multiple of 4, so that whole
+// 16-byte pieces can be bulk-copied around any edge range.  Then, per
+// block, 2 f32 partial sums of d floats per warp and their rows.
+template <typename T, int VEC, int MODE>
+__global__ void __launch_bounds__(kWarps * 32,
+                                  sizeof(T) == 2 ? kMinBlocksBf16 : 2)
+share_sum_kernel(const T* __restrict__ msgs,
                  const int32_t* __restrict__ dst,
                  const float* __restrict__ w,
                  const int64_t* __restrict__ rowptr,
-                 float* __restrict__ out, float* __restrict__ carry,
+                 T* __restrict__ out, float* __restrict__ carry,
                  int64_t n_rows, int64_t n_edges, int d, int t, int R,
                  int bulk, int accumulate) {
   constexpr bool kWeighted = MODE == kF32W;
+  constexpr bool kHalf = sizeof(T) == 2;  // bf16 messages (kF32W only)
+  static_assert(!kHalf || MODE == kF32W, "bf16 messages: mode 0 weighted");
   constexpr int CW = 32 * VEC;  // columns per pass
   // column passes per walk: bf16 and hilo take one, their longer term
-  // code unrolled kMaxPass times ran slower (PERF.md)
-  constexpr int MP = MODE == kBf16 || MODE == kHilo ? 1 : kMaxPass;
+  // code unrolled kMaxPass times ran slower (PERF.md); so do bf16
+  // messages, whose terms round too
+  constexpr int MP = MODE == kBf16 || MODE == kHilo || kHalf ? 1 : kMaxPass;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int RD = R + kPad;
-  const int slab_floats = R * d;  // R % 4 == 0: stages stay 16-byte aligned
+  // R % 4 == 0, the slab rounded up to 16 bytes: stages stay aligned
+  const int slab_floats = (int)(((size_t)R * d * sizeof(T) + 15) / 16 * 4);
   const int stage_floats = slab_floats + RD * (kWeighted ? 2 : 1);
   float* const region = smem + (size_t)warp * kStages * (4 + stage_floats);
   const unsigned bar0 = smem_addr(region);  // stage i's barrier: bar0 + 16 i
@@ -365,13 +447,15 @@ share_sum_kernel(const float* __restrict__ msgs,
     const int64_t n4 = n_edges & ~(int64_t)3;
     auto stage = [&](int k, int q) {
       float* st = ring + (q % kStages) * stage_floats;
+      T* const sm = reinterpret_cast<T*>(st);
       int32_t* sd = reinterpret_cast<int32_t*>(st + slab_floats);
       float* sw = st + slab_floats + RD;
       const int64_t sb = base + (int64_t)k * R;
       const int64_t db = sb & ~(int64_t)3;
       const int64_t e0 = max64(sb, a), e1 = min64(sb + R, b);
       if (!bulk) {
-        warp_copy(st + (e0 - sb) * d, msgs + e0 * d, (int)(e1 - e0) * d, lane);
+        copy_elems<T>(sm + (e0 - sb) * d, msgs + e0 * d, (int)(e1 - e0) * d,
+                      lane);
         warp_copy(sd + (e0 - db), dst + e0, (int)(e1 - e0), lane);
         if (kWeighted) warp_copy(sw + (e0 - db), w + e0, (int)(e1 - e0), lane);
         cp_async_commit();
@@ -387,12 +471,12 @@ share_sum_kernel(const float* __restrict__ msgs,
       }
       if (lane == 0) {
         const unsigned bar = bar0 + 16 * (q % kStages);
-        const unsigned mbytes = (unsigned)((e1 - e0) * d * 4);
+        const unsigned mbytes = (unsigned)((e1 - e0) * d * sizeof(T));
         const unsigned qbytes = q1 > q0 ? (unsigned)((q1 - q0) * 4) : 0u;
         // the stage's last reads (generic proxy) before the copy rewrites it
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         bar_expect(bar, mbytes + qbytes * (kWeighted ? 2 : 1));
-        bulk_load(smem_addr(st + (e0 - sb) * d), msgs + e0 * d, mbytes, bar);
+        bulk_load(smem_addr(sm + (e0 - sb) * d), msgs + e0 * d, mbytes, bar);
         if (qbytes) {
           bulk_load(smem_addr(sd + (q0 - db)), dst + q0, qbytes, bar);
           if (kWeighted)
@@ -429,6 +513,19 @@ share_sum_kernel(const float* __restrict__ msgs,
       part_row[2 * warp] = first_split ? (int)first : -1;
       part_row[2 * warp + 1] = last != first && last_split ? (int)last : -1;
     }
+    // a finished row's sums: into its part slot (f32), or into out
+    // (added to it when accumulating; narrowed to T once)
+    auto put_row = [&](float* slot, int64_t row, const float* acc, int col) {
+      if constexpr (kHalf) {
+        if (slot != nullptr)
+          rows::store_f32<float, VEC>(slot + col, acc);
+        else
+          put_t<T, VEC>(out + row * d + col, acc, accumulate);
+      } else {
+        put<VEC>((slot != nullptr ? slot : out + row * d) + col, acc,
+                 slot == nullptr && accumulate);
+      }
+    };
 
     int qbase = 0;  // slabs loaded by earlier walks
     for (int p0 = 0; p0 < npass; p0 += MP, qbase += n_slabs) {
@@ -452,6 +549,7 @@ share_sum_kernel(const float* __restrict__ msgs,
           cp_async_wait<kStages - 1>();
         __syncwarp();  // slab k is in, from every lane's copies
         const float* st = ring + (q % kStages) * stage_floats;
+        const T* const sm = reinterpret_cast<const T*>(st);
         const int64_t sb = base + (int64_t)k * R;
         const int dofs = (int)(sb & 3);  // dst/weight word of edge sb
         const int32_t* sd =
@@ -478,21 +576,24 @@ share_sum_kernel(const float* __restrict__ msgs,
               for (int p = 0; p < MP; ++p) {
                 const int col = (p0 + p) * CW + lane * VEC;
                 if (p0 + p < npass && col < d) {  // d % VEC == 0
-                  float v[VEC];
-                  Vec<VEC>::load(v, st + e * d + col);
-                  add_terms<MODE, VEC>(acc[p], v, we);
+                  if constexpr (kHalf) {
+                    add_terms_bf16w<VEC>(acc[p], sm + e * d + col,
+                                         __float2bfloat162_rn(we));
+                  } else {
+                    float v[VEC];
+                    Vec<VEC>::load(v, st + e * d + col);
+                    add_terms<MODE, VEC>(acc[p], v, we);
+                  }
                 }
               }
             }
             if (!starts) break;
             // row cur is complete
-            const bool carried = cur == first && first_split;
-            float* o = carried ? slot0 : out + cur * d;
+            float* const o = cur == first && first_split ? slot0 : nullptr;
 #pragma unroll
             for (int p = 0; p < MP; ++p) {
               const int col = (p0 + p) * CW + lane * VEC;
-              if (p0 + p < npass && col < d)
-                put<VEC>(o + col, acc[p], !carried && accumulate);
+              if (p0 + p < npass && col < d) put_row(o, cur, acc[p], col);
 #pragma unroll
               for (int q2 = 0; q2 < VEC; ++q2) acc[p][q2] = 0.f;
             }
@@ -505,12 +606,11 @@ share_sum_kernel(const float* __restrict__ msgs,
       }
       // the share's last row (the first one too when it has one row)
       const bool carried = cur == first ? first_split : last_split;
-      float* o = carried ? (cur == first ? slot0 : slot1) : out + cur * d;
+      float* const o = carried ? (cur == first ? slot0 : slot1) : nullptr;
 #pragma unroll
       for (int p = 0; p < MP; ++p) {
         const int col = (p0 + p) * CW + lane * VEC;
-        if (p0 + p < npass && col < d)
-          put<VEC>(o + col, acc[p], !carried && accumulate);
+        if (p0 + p < npass && col < d) put_row(o, cur, acc[p], col);
       }
     }
   };
@@ -529,12 +629,10 @@ share_sum_kernel(const float* __restrict__ msgs,
         const int64_t r = i < 2 * nw ? part_row[i] : -2;  // -2: the end
         if (r == -1) continue;
         if (r != run && run >= 0) {
-          if (run == before || run == after) {
+          if (run == before || run == after)
             cslot[(run == first_row ? 0 : d) + col] = sum;
-          } else {
-            float* o = out + run * d + col;
-            *o = accumulate ? *o + sum : sum;
-          }
+          else
+            put1<T>(out + run * d + col, sum, accumulate);
         }
         if (r != run) {
           run = r;
@@ -652,82 +750,6 @@ carry_sum_kernel(const int32_t* __restrict__ dst,
     float acc[VEC];
     sum_carries<VEC>(acc, carry, s0, (b1 - 1) / t, slot, d, col);
     put_t<T, VEC>(out + r * d + col, acc, accumulate);
-  }
-}
-
-// The share pass of bf16 messages with an edge weight (see the header):
-// lane group g of the grid sums share g of t edges.
-template <int VEC>
-__global__ void __launch_bounds__(kFixThreads)
-share_sum_bf16w_kernel(const __nv_bfloat16* __restrict__ msgs,
-                       const int32_t* __restrict__ dst,
-                       const float* __restrict__ w,
-                       const int64_t* __restrict__ rowptr,
-                       __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ carry, int64_t n_rows,
-                       int64_t n_edges, int d, int t, int L, int accumulate) {
-  constexpr int kUnroll = 8;  // message rows in flight per lane group
-  const int64_t s = ((int64_t)blockIdx.x * kFixThreads + threadIdx.x) / L;
-  const int sub = threadIdx.x % L;
-  const int64_t lo = min64(rowptr[0], n_edges);
-  const int64_t hi = min64(rowptr[n_rows], n_edges);
-  const int64_t a = max64(s * t, lo);
-  const int64_t b = min64((s + 1) * t, hi);
-  if (a >= b) return;  // group-uniform; no shuffles below
-  // dst[e] is edge e's row for e in [lo, hi): the share's first and last
-  // rows, and whether each continues in the share before or after
-  const int64_t first = dst[a];
-  const int64_t last = dst[b - 1];
-  const bool first_split = (a > lo && dst[a - 1] == first) ||
-                           (b < hi && dst[b] == first);
-  const bool last_split = b < hi && dst[b] == last;
-  float* const slot0 = carry + (s * 2) * (int64_t)d;
-  float* const slot1 = slot0 + d;
-  for (int c0 = 0; c0 < d; c0 += L * VEC) {
-    const int col = c0 + sub * VEC;
-    const bool active = col < d;  // d % VEC == 0: the whole piece is in
-    float acc[VEC];
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
-    int64_t cur = first;
-    // a finished row: its carry slot, or out (bf16, rounded once)
-    auto flush = [&](int64_t row) {
-      if (!active) return;
-      if (row == first && first_split)
-        rows::store_f32<float, VEC>(slot0 + col, acc);
-      else if (row == last && last_split)
-        rows::store_f32<float, VEC>(slot1 + col, acc);
-      else
-        put_t<__nv_bfloat16, VEC>(out + row * d + col, acc, accumulate);
-    };
-    for (int64_t e0 = a; e0 < b; e0 += kUnroll) {
-      const int n_here = (int)min64(kUnroll, b - e0);
-      rows::Piece<__nv_bfloat16, VEC> v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (active && u < n_here)
-          v[u].ldg(msgs + (e0 + u) * d + col);
-        else
-          v[u].zero();
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (u < n_here) {
-          const int64_t r = __ldg(dst + e0 + u);
-          if (r != cur) {  // row cur is complete
-            flush(cur);
-#pragma unroll
-            for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
-            cur = r;
-          }
-          const float we = rows::bf16_rn(__ldg(w + e0 + u));
-#pragma unroll
-          for (int q = 0; q < VEC; ++q)
-            acc[q] += rows::bf16_rn(__fmul_rn(we, v[u].get(q)));
-        }
-      }
-    }
-    flush(cur);
   }
 }
 
@@ -850,60 +872,47 @@ int launch_carry_vec(const int32_t* dp, const int64_t* rp, const float* cp,
   return (int)cudaGetLastError();
 }
 
-// the carry pass with the widest stores that d and out's alignment allow
+// the carry pass with the widest stores (16 bytes at most) that d and
+// out's alignment allow
+template <typename T>
 int launch_carry(const int32_t* dp, const int64_t* rp, const float* cp,
-                 float* op, long long n_rows, long long n_edges, int d, int t,
+                 T* op, long long n_rows, long long n_edges, int d, int t,
                  long long n_shares, int accumulate, cudaStream_t st) {
   const uintptr_t o = (uintptr_t)op;
-  if (d % 4 == 0 && o % 16 == 0)
-    return launch_carry_vec<float, 4>(dp, rp, cp, op, n_rows, n_edges, d, t,
-                                      n_shares, accumulate, st);
-  if (d % 2 == 0 && o % 8 == 0)
-    return launch_carry_vec<float, 2>(dp, rp, cp, op, n_rows, n_edges, d, t,
-                                      n_shares, accumulate, st);
-  return launch_carry_vec<float, 1>(dp, rp, cp, op, n_rows, n_edges, d, t,
+  const int e = (int)sizeof(T);
+  if constexpr (sizeof(T) == 2) {
+    if (d % 8 == 0 && o % 16 == 0)
+      return launch_carry_vec<T, 8>(dp, rp, cp, op, n_rows, n_edges, d, t,
                                     n_shares, accumulate, st);
-}
-
-// bf16 messages with a weight: the share pass (one lane group per share
-// of t edges) and the carry pass over its per-share carries
-template <int VEC>
-int launch_bf16w(const __nv_bfloat16* m, const int32_t* dp, const float* wp,
-                 const int64_t* rp, __nv_bfloat16* op, float* cp,
-                 long long n_rows, long long n_edges, int d, int t,
-                 int accumulate, cudaStream_t st) {
-  const int L = lanes_for(d, VEC);
-  const long long n_shares = (n_edges + t - 1) / t;
-  const long long per_block = kFixThreads / L;
-  const long long blocks = (n_shares + per_block - 1) / per_block;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (blocks > 0) {
-    share_sum_bf16w_kernel<VEC><<<(unsigned)blocks, kFixThreads, 0, st>>>(
-        m, dp, wp, rp, op, cp, n_rows, n_edges, d, t, L, accumulate);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
   }
-  return launch_carry_vec<__nv_bfloat16, VEC>(
-      dp, rp, cp, op, n_rows, n_edges, d, t, n_shares, accumulate, st);
+  if (d % 4 == 0 && o % (4 * e) == 0)
+    return launch_carry_vec<T, 4>(dp, rp, cp, op, n_rows, n_edges, d, t,
+                                  n_shares, accumulate, st);
+  if (d % 2 == 0 && o % (2 * e) == 0)
+    return launch_carry_vec<T, 2>(dp, rp, cp, op, n_rows, n_edges, d, t,
+                                  n_shares, accumulate, st);
+  return launch_carry_vec<T, 1>(dp, rp, cp, op, n_rows, n_edges, d, t,
+                                n_shares, accumulate, st);
 }
 
-// the share pass's layout for d-float rows: R edges per slab, one
-// warp's shared memory (its ring, and its two partial sums and their
-// rows), and the warps (shares) per block, fewer where a wide row leaves
-// room for fewer rings (0: the row does not fit)
+// the share pass's layout for rows of d elements of `elem` bytes: R
+// edges per slab, one warp's shared memory (its ring, and its two
+// partial sums and their rows), and the warps (shares) per block, fewer
+// where a wide row leaves room for fewer rings (0: the row does not fit)
 struct ShareLayout {
   int R;
   size_t warp_bytes;
   int warps;
 };
 
-ShareLayout share_layout(int d, bool weighted) {
+ShareLayout share_layout(int d, bool weighted, int elem) {
   ShareLayout l;
-  l.R = (kSlabBytes / (4 * d)) & ~3;
+  l.R = ((elem == 2 ? kSlabBytesBf16 : kSlabBytes) / (elem * d)) & ~3;
   if (l.R < 4) l.R = 4;
+  const size_t slab_floats = ((size_t)l.R * d * elem + 15) / 16 * 4;
   l.warp_bytes =
       ((size_t)kStages *
-           (4 + (size_t)l.R * d + (size_t)(l.R + kPad) * (weighted ? 2 : 1)) +
+           (4 + slab_floats + (size_t)(l.R + kPad) * (weighted ? 2 : 1)) +
        2 * (size_t)d + 2) *
       sizeof(float);
   const size_t warps = kMaxSmem / l.warp_bytes;
@@ -911,12 +920,12 @@ ShareLayout share_layout(int d, bool weighted) {
   return l;
 }
 
-template <int VEC, int MODE>
-int launch_shares(const float* m, const int32_t* dp, const float* wp,
-                  const int64_t* rp, float* op, float* cp, long long n_rows,
+template <typename T, int VEC, int MODE>
+int launch_shares(const T* m, const int32_t* dp, const float* wp,
+                  const int64_t* rp, T* op, float* cp, long long n_rows,
                   long long n_edges, int d, int t, int bulk, int accumulate,
                   cudaStream_t st) {
-  const ShareLayout l = share_layout(d, MODE == kF32W);
+  const ShareLayout l = share_layout(d, MODE == kF32W, (int)sizeof(T));
   const int R = l.R, warps = l.warps;
   if (warps < 1) return (int)cudaErrorInvalidValue;
   const long long tc = (long long)warps * t;  // edges per block
@@ -926,17 +935,27 @@ int launch_shares(const float* m, const int32_t* dp, const float* wp,
   if (blocks > 0) {
     const size_t smem = l.warp_bytes * warps;
     const cudaError_t err = cudaFuncSetAttribute(
-        share_sum_kernel<VEC, MODE>,
+        share_sum_kernel<T, VEC, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    share_sum_kernel<VEC, MODE><<<(unsigned)blocks, warps * 32, smem, st>>>(
+    share_sum_kernel<T, VEC, MODE><<<(unsigned)blocks, warps * 32, smem, st>>>(
         m, dp, wp, rp, op, cp, n_rows, n_edges, d, t, R, bulk, accumulate);
     const cudaError_t err2 = cudaGetLastError();
     if (err2 != cudaSuccess) return (int)err2;
   }
   // the carries are per block: the carry pass sees shares of tc edges
-  return launch_carry(dp, rp, cp, op, n_rows, n_edges, d, (int)tc, blocks,
-                      accumulate, st);
+  return launch_carry<T>(dp, rp, cp, op, n_rows, n_edges, d, (int)tc, blocks,
+                         accumulate, st);
+}
+
+// the share pass's mode for (mode, weighted); -1 for a combination the
+// kernel does not take (a weight outside mode 0, bf16 messages outside
+// mode 0 with a weight)
+int share_mode(int mode, bool weighted, bool bf16) {
+  if (mode < kF32 || mode > kHilo || (weighted && mode != kF32) ||
+      (bf16 && (mode != kF32 || !weighted)))
+    return -1;
+  return weighted ? kF32W : mode;
 }
 
 template <int VEC>
@@ -945,51 +964,83 @@ int launch_mode(int mode, const float* m, const int32_t* dp, const float* wp,
                 long long n_edges, int d, int t, int bulk, int accumulate,
                 cudaStream_t st) {
   switch (mode) {
+    case kF32W:
+      return launch_shares<float, VEC, kF32W>(m, dp, wp, rp, op, cp, n_rows,
+                                              n_edges, d, t, bulk, accumulate,
+                                              st);
     case kF32:
-      if (wp != nullptr)
-        return launch_shares<VEC, kF32W>(m, dp, wp, rp, op, cp, n_rows,
-                                         n_edges, d, t, bulk, accumulate, st);
-      return launch_shares<VEC, kF32>(m, dp, wp, rp, op, cp, n_rows, n_edges,
-                                      d, t, bulk, accumulate, st);
+      return launch_shares<float, VEC, kF32>(m, dp, wp, rp, op, cp, n_rows,
+                                             n_edges, d, t, bulk, accumulate,
+                                             st);
     case kBf16:
-      return launch_shares<VEC, kBf16>(m, dp, wp, rp, op, cp, n_rows,
-                                       n_edges, d, t, bulk, accumulate, st);
+      return launch_shares<float, VEC, kBf16>(m, dp, wp, rp, op, cp, n_rows,
+                                              n_edges, d, t, bulk, accumulate,
+                                              st);
     default:
-      return launch_shares<VEC, kHilo>(m, dp, wp, rp, op, cp, n_rows,
-                                       n_edges, d, t, bulk, accumulate, st);
+      return launch_shares<float, VEC, kHilo>(m, dp, wp, rp, op, cp, n_rows,
+                                              n_edges, d, t, bulk, accumulate,
+                                              st);
   }
+}
+
+// the share pass's instance for (share mode, bf16, vec); null where
+// there is none
+const void* share_kernel(int smode, bool bf16, int vec) {
+  using B = __nv_bfloat16;
+  if (bf16) {
+    switch (vec) {
+      case 8: return (const void*)share_sum_kernel<B, 8, kF32W>;
+      case 4: return (const void*)share_sum_kernel<B, 4, kF32W>;
+      case 2: return (const void*)share_sum_kernel<B, 2, kF32W>;
+      default: return (const void*)share_sum_kernel<B, 1, kF32W>;
+    }
+  }
+#define SHARE_FN(V)                                                  \
+  (smode == kF32W  ? (const void*)share_sum_kernel<float, V, kF32W>  \
+   : smode == kF32 ? (const void*)share_sum_kernel<float, V, kF32>   \
+   : smode == kBf16 ? (const void*)share_sum_kernel<float, V, kBf16> \
+                    : (const void*)share_sum_kernel<float, V, kHilo>)
+  switch (vec) {
+    case 4: return SHARE_FN(4);
+    case 2: return SHARE_FN(2);
+    default: return SHARE_FN(1);
+  }
+#undef SHARE_FN
+}
+
+bool bad_vec(int vec, int d, bool bf16) {
+  return vec < 1 || vec > (bf16 ? 8 : 4) || (vec & (vec - 1)) != 0 ||
+         d % vec != 0;
 }
 
 }  // namespace
 
 // Rows of the carry workspace of modes 0-2: one slot pair per block of
-// the share pass's grid over n_edges d-float rows in shares of
-// share_edges (with an edge weight or not), or, for bf16 messages, per
-// share; -1 where the launch would refuse the shape.
+// the share pass's grid over n_edges d-element rows (f32, or bf16 where
+// bf16 == 1) in shares of share_edges, with an edge weight or not; -1
+// where the launch would refuse the shape.
 extern "C" long long block_segment_sum_carry_rows(long long n_edges, int d,
                                                   int weighted,
                                                   int share_edges, int bf16) {
   if (n_edges < 0 || d <= 0 || share_edges <= 0) return -1;
-  // bf16 messages: one slot pair per share
-  if (bf16) return (n_edges + share_edges - 1) / share_edges;
-  const ShareLayout l = share_layout(d, weighted != 0);
+  const ShareLayout l = share_layout(d, weighted != 0, bf16 ? 2 : 4);
   if (l.warps < 1) return -1;
   const long long tc = (long long)l.warps * share_edges;
   return (n_edges + tc - 1) / tc;
 }
 
-// msgs (n_edges, d) f32, dst (n_edges,) int32 sorted, rowptr (n_rows + 1,)
-// int64 its CSR row pointer, weight (n_edges,) f32 or null (mode 0
-// only), out (n_rows, d) f32.  Modes 0-2: carry
+// msgs (n_edges, d) f32 (bf16 == 0) or bf16 (bf16 == 1; mode 0 with a
+// weight only), dst (n_edges,) int32 sorted, rowptr (n_rows + 1,) int64
+// its CSR row pointer, weight (n_edges,) f32 or null (mode 0 only), out
+// (n_rows, d) of the messages' type.  Modes 0-2: carry
 // (block_segment_sum_carry_rows(n_edges, d, weight != null, share_edges,
-// bf16), 2, d) f32 scratch; vec: the floats per lane of the
-// shared-memory reads and of the out/carry stores (1, 2 or 4; d % vec
-// == 0, out aligned to 4 * vec bytes).  Launches the share
-// pass and the carry pass on `stream`.  Mode 3 (stream): bm-row blocks,
-// ec-edge chunks, n_edges % ec == 0, msgs 16-byte aligned; carry, vec
-// and share_edges unused.  bf16 == 1: msgs and out bf16, mode 0 with a
-// weight only, vec the bf16 values per lane (1, 2, 4 or 8; msgs and out
-// aligned to vec values).  Returns a cudaError_t.
+// bf16), 2, d) f32 scratch; vec: the elements per lane of the
+// shared-memory reads and of the out/carry stores of the share pass (f32:
+// 1, 2 or 4; bf16: 1, 2, 4 or 8; d % vec == 0, out aligned to vec
+// elements).  Launches the share pass and the carry pass on `stream`.
+// Mode 3 (stream, f32): bm-row blocks, ec-edge chunks, n_edges % ec ==
+// 0, msgs 16-byte aligned; carry, vec and share_edges unused.  Returns a
+// cudaError_t.
 extern "C" int block_segment_sum_launch(const void* msgs, const void* dst,
                                         const void* rowptr,
                                         const void* weight, void* out,
@@ -998,22 +1049,37 @@ extern "C" int block_segment_sum_launch(const void* msgs, const void* dst,
                                         int mode, int bm, int ec,
                                         int share_edges, int accumulate,
                                         int bf16, void* stream) {
+  if (n_rows < 0 || n_edges < 0 || d <= 0 || (bf16 != 0 && bf16 != 1))
+    return (int)cudaErrorInvalidValue;
+  const int smode = mode == kStream
+                        ? (weight != nullptr || bf16 ? -1 : kStream)
+                        : share_mode(mode, weight != nullptr, bf16 != 0);
+  if (smode < 0) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* dp = static_cast<const int32_t*>(dst);
+  const int64_t* rp = static_cast<const int64_t*>(rowptr);
+  const float* wp = static_cast<const float*>(weight);
+  float* cp = static_cast<float*>(carry);
+  if (smode == kStream) {
+    if (bm <= 0) return (int)cudaErrorInvalidValue;
+    return launch_stream(static_cast<const float*>(msgs), dp, rp,
+                         static_cast<float*>(out), n_rows, d, bm, ec,
+                         accumulate, st);
+  }
+  if (share_edges <= 0 || bad_vec(vec, d, bf16 != 0))
+    return (int)cudaErrorInvalidValue;
+  // bulk copies need 16-byte aligned sources and whole 16-byte rows
+  const int bulk =
+      (d * (bf16 ? 2 : 4)) % 16 == 0 &&
+      (((uintptr_t)msgs | (uintptr_t)dst | (uintptr_t)weight) & 15) == 0;
   if (bf16) {
-    if (n_rows < 0 || n_edges < 0 || d <= 0 || mode != kF32 ||
-        weight == nullptr || share_edges <= 0 || vec < 1 || vec > 8 ||
-        (vec & (vec - 1)) != 0 || d % vec != 0)
-      return (int)cudaErrorInvalidValue;
-    if (n_rows == 0) return (int)cudaSuccess;
-    const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(msgs);
-    const int32_t* dp = static_cast<const int32_t*>(dst);
-    const float* wp = static_cast<const float*>(weight);
-    const int64_t* rp = static_cast<const int64_t*>(rowptr);
-    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
-    float* cp = static_cast<float*>(carry);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BF16W(V)                                                        \
-  launch_bf16w<V>(m, dp, wp, rp, op, cp, n_rows, n_edges, d, share_edges, \
-                  accumulate, st)
+    using B = __nv_bfloat16;
+    const B* m = static_cast<const B*>(msgs);
+    B* op = static_cast<B*>(out);
+#define BF16W(V)                                                           \
+  launch_shares<B, V, kF32W>(m, dp, wp, rp, op, cp, n_rows, n_edges, d,    \
+                             share_edges, bulk, accumulate, st)
     switch (vec) {
       case 8: return BF16W(8);
       case 4: return BF16W(4);
@@ -1022,37 +1088,50 @@ extern "C" int block_segment_sum_launch(const void* msgs, const void* dst,
     }
 #undef BF16W
   }
-  if (n_rows < 0 || n_edges < 0 || d <= 0 || mode < kF32 ||
-      mode > kStream || (weight != nullptr && mode != kF32))
-    return (int)cudaErrorInvalidValue;
-  if (n_rows == 0) return (int)cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(msgs);
-  const int32_t* dp = static_cast<const int32_t*>(dst);
-  const int64_t* rp = static_cast<const int64_t*>(rowptr);
-  const float* wp = static_cast<const float*>(weight);
   float* op = static_cast<float*>(out);
-  float* cp = static_cast<float*>(carry);
-  if (mode == kStream) {
-    if (bm <= 0) return (int)cudaErrorInvalidValue;
-    return launch_stream(m, dp, rp, op, n_rows, d, bm, ec, accumulate, st);
-  }
-  if (share_edges <= 0 || (vec != 1 && vec != 2 && vec != 4) ||
-      d % vec != 0)
-    return (int)cudaErrorInvalidValue;
-  // bulk copies need 16-byte aligned sources and whole 16-byte rows
-  const int bulk =
-      d % 4 == 0 &&
-      (((uintptr_t)msgs | (uintptr_t)dst | (uintptr_t)weight) & 15) == 0;
   switch (vec) {
     case 4:
-      return launch_mode<4>(mode, m, dp, wp, rp, op, cp, n_rows, n_edges, d,
+      return launch_mode<4>(smode, m, dp, wp, rp, op, cp, n_rows, n_edges, d,
                             share_edges, bulk, accumulate, st);
     case 2:
-      return launch_mode<2>(mode, m, dp, wp, rp, op, cp, n_rows, n_edges, d,
+      return launch_mode<2>(smode, m, dp, wp, rp, op, cp, n_rows, n_edges, d,
                             share_edges, bulk, accumulate, st);
     default:
-      return launch_mode<1>(mode, m, dp, wp, rp, op, cp, n_rows, n_edges, d,
+      return launch_mode<1>(smode, m, dp, wp, rp, op, cp, n_rows, n_edges, d,
                             share_edges, bulk, accumulate, st);
   }
+}
+
+// What the share pass's instance for (mode 0-2, weighted, bf16, vec)
+// uses on rows of d elements: info[0] its registers per thread, info[1]
+// its local memory per thread in bytes (stack and spills), info[2] its
+// resident blocks per SM (the occupancy API, with the launch's threads
+// and shared memory), info[3] its threads per block.  Returns a
+// cudaError_t.
+extern "C" int block_segment_sum_share_usage(int mode, int weighted,
+                                             int bf16, int vec, int d,
+                                             int* info) {
+  const int smode = share_mode(mode, weighted != 0, bf16 != 0);
+  if (d <= 0 || smode < 0 || bad_vec(vec, d, bf16 != 0) || info == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const ShareLayout l = share_layout(d, weighted != 0, bf16 ? 2 : 4);
+  if (l.warps < 1) return (int)cudaErrorInvalidValue;
+  const void* fn = share_kernel(smode, bf16 != 0, vec);
+  const size_t smem = l.warp_bytes * l.warps;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      l.warps * 32, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = blocks;
+  info[3] = l.warps * 32;
+  return (int)cudaSuccess;
 }

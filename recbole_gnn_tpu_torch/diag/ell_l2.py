@@ -167,13 +167,15 @@ def print_ptxas(name: str, log: str):
 
 
 def build_all(sources: dict[str, str], build_dir: str) -> dict:
-    """Compile each ``{name: source text}`` at once (one ``nvcc`` each);
-    returns ``{name: ctypes.CDLL}``."""
+    """Compile each ``{name: source text}`` at once (one ``nvcc`` each,
+    ``csrc/`` on the include path for its headers); returns ``{name:
+    ctypes.CDLL}``."""
     procs = {}
     for name, text in sources.items():
         src, lib = _build_source(name, text, build_dir)
         procs[name] = (subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, src],
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             cuda_build.CSRC_DIR, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():

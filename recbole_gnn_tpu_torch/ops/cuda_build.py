@@ -12,7 +12,8 @@ The kernel wrappers share the launch contract's checks here:
 :func:`check_tensors` (device, dtype, rank, contiguity),
 :func:`check_row_dtype` (f32 or bf16 rows) and
 :func:`vec_width` (the widest vector load a row layout allows, in
-elements of the row's type).
+elements of the row's type).  :func:`ptxas_usage` reads what each
+kernel of a build uses from the compiler's ``-Xptxas=-v`` output.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -95,6 +97,30 @@ def build(names) -> dict[str, str]:
     if failed:
         raise RuntimeError("CUDA build failed: " + "\n".join(failed))
     return logs
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Each entry function of an ``-Xptxas=-v`` build log: its mangled
+    name, registers per thread, and stack frame, spill store and spill
+    load bytes."""
+    out, cur, props = [], None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur, props = m.group(1), {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            props = dict(zip(("stack_bytes", "spill_stores", "spill_loads"),
+                             map(int, m.groups())))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out.append({"function": cur, "registers": int(m.group(1)),
+                        **props})
+            cur = None
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

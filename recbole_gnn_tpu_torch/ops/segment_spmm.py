@@ -130,20 +130,53 @@ def _hi_lo_bits(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, _bf16(x - hi)
 
 
+def pack_table(x: torch.Tensor) -> torch.Tensor:
+    """The per-call pack of ``packed`` mode, the plain form of the
+    kernel's pack pass: an f32 x as the sum of its hi and lo planes
+    (``x̃ = hi + lo``, :func:`_hi_lo_bits`; exact in f32, since each
+    part has at most 8 significant bits and lo lies below hi's last
+    bit), formed once per call where the TPU kernel's wrapper packs x
+    (``pallas_spmm.py:385-388``); a bf16 x as it is (hi = x, lo = 0),
+    which the kernel reads without a pass."""
+    if x.dtype == torch.bfloat16:
+        return x
+    hi, lo = _hi_lo_bits(x)
+    return hi + lo
+
+
+def packed_terms(table: torch.Tensor, src: torch.Tensor,
+                 weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``packed`` mode's per-edge terms from the packed table
+    (:func:`pack_table`): ``m = x̃[src]·w`` in f32, split into its
+    truncated hi and rounded lo planes, summed apart by the kernel."""
+    m = table.index_select(0, src.long()).to(torch.float32) * weight[:, None]
+    return _hi_lo_bits(m)
+
+
+def pack_workspace_shape(x: torch.Tensor,
+                         precision: str) -> tuple[int, int] | None:
+    """Shape of the kernel's f32 workspace for the packed table: x's,
+    for an f32 x in ``packed`` mode; None (no pack pass) otherwise."""
+    if precision == "packed" and x.dtype == torch.float32:
+        return tuple(x.shape)
+    return None
+
+
 def segment_spmm_plain(src: torch.Tensor, dst: torch.Tensor,
                        weight: torch.Tensor, x: torch.Tensor, n_out: int,
                        precision: str = "f32x2") -> torch.Tensor:
     """The plain version of each K1 precision, its terms formed as the
     JAX package's ``_pallas_spmm_jit`` forms them and summed in f32 by
     ``index_add_``: ``f32x2`` the exact ``w·x`` (:func:`spmm_coo`);
-    ``bf16`` each term ``bf16(w·x)``; ``packed`` x split into hi/lo
-    planes (:func:`_hi_lo_bits`), ``m = (hi + lo)·w`` per edge split
-    again, the two planes summed apart and added at the end.
+    ``bf16`` each term ``bf16(w·x)``; ``packed`` x packed once into hi
+    + lo (:func:`pack_table`), ``m = x̃·w`` per edge split again
+    (:func:`packed_terms`), the two planes summed apart and added at
+    the end.
 
     A bf16 ``x`` gives an f32 output too.  ``f32x2`` and ``bf16`` then
     take the weight rounded to bf16 (``w.astype(x.dtype)``): ``f32x2``
     sums the exact f32 products, ``bf16`` the products rounded to bf16;
-    ``packed`` widens x to f32 (hi = x, lo = 0) and keeps the f32
+    ``packed`` reads x as it is (hi = x, lo = 0) and keeps the f32
     weight."""
     _check_precision(precision)
     bf16_x = x.dtype == torch.bfloat16
@@ -153,18 +186,19 @@ def segment_spmm_plain(src: torch.Tensor, dst: torch.Tensor,
     planes = 2 if precision == "packed" else 1
     out = torch.zeros((planes, n_out, d), dtype=torch.float32,
                       device=x.device)
-    x = x.to(torch.float32)
     w = weight.to(torch.float32)
     if precision == "packed":
-        hi, lo = _hi_lo_bits(x)
-        x = hi + lo
+        x = pack_table(x)
     elif bf16_x:
         w = _bf16(w)
     chunk = max(1, min(e, MSGS_BYTES_BUDGET // max(1, 2 * d * 4)))
     for s in range(0, e, chunk):
-        m = x.index_select(0, src[s:s + chunk]) * w[s:s + chunk, None]
-        terms = (_hi_lo_bits(m) if precision == "packed"
-                 else (_bf16(m),) if precision == "bf16" else (m,))
+        if precision == "packed":
+            terms = packed_terms(x, src[s:s + chunk], w[s:s + chunk])
+        else:
+            m = (x.index_select(0, src[s:s + chunk]).to(torch.float32)
+                 * w[s:s + chunk, None])
+            terms = (_bf16(m),) if precision == "bf16" else (m,)
         for p, t in enumerate(terms):
             out[p].index_add_(0, dst[s:s + chunk], t)
     return out.sum(0) if precision == "packed" else out[0]
@@ -290,16 +324,20 @@ def share_sum_plain(msgs: torch.Tensor, rowptr: torch.Tensor,
     sh, slot = (sch.carry_row >= 0).nonzero(as_tuple=True)
     carry[sh, slot] = partial[torch.searchsorted(
         run_key, sh * n_rows + sch.carry_row[sh, slot])]
+    # each split row: the carry of its first share (slot first_slot),
+    # then slot 0 of each later share, added one after another in share
+    # order; np.add.accumulate adds in that order, in the messages' type
+    # (on the host: a row may span 10^5 shares, one add each)
     rows = sch.split.nonzero().squeeze(1)
     s0 = sch.first_share[rows]
-    span = sch.last_share[rows] - s0
-    acc = carry[s0, sch.first_slot[rows]]
-    live, k = torch.arange(rows.shape[0], device=dev), 1
-    while live.shape[0]:
-        live = live[span[live] >= k]
-        acc[live] += carry[s0[live] + k, 0]
-        k += 1
-    out[rows] = acc
+    acc = carry[s0, sch.first_slot[rows]].cpu().numpy()
+    later = carry[:, 0].cpu().numpy()
+    for j, (a, n) in enumerate(zip(s0.tolist(),
+                                   (sch.last_share[rows] - s0).tolist())):
+        if n:
+            acc[j] = np.add.accumulate(np.concatenate(
+                (acc[j:j + 1], later[a + 1:a + n + 1])))[-1]
+    out[rows] = torch.from_numpy(acc).to(dev)
     return out
 
 
@@ -343,8 +381,10 @@ def segment_spmm(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
     or bf16 ``x``, read as it is, f32 ``weight``, int32 ``src``/``dst``,
     int64 ``rowptr``, all contiguous on one card; any other input
     raises) over shares of ``SHARE_EDGES`` edges, with a carry workspace
-    of :func:`share_workspace_shape`; one launch runs the share pass and
-    the carry pass.  The output is f32.  A CPU ``x`` runs
+    of :func:`share_workspace_shape` (and, for an f32 x in ``packed``,
+    one of :func:`pack_workspace_shape` for its packed table); one
+    launch runs the pack pass where there is one, the share pass and the
+    carry pass.  The output is f32.  A CPU ``x`` runs
     :func:`spmm_coo` in ``f32x2``, in x's dtype (the JAX package's path
     off the TPU, which a bf16 x keeps bf16; the f32x2 kernel's plain
     version for a bf16 x is :func:`segment_spmm_plain`), or
@@ -382,18 +422,43 @@ def _segment_spmm_cuda(src, dst, weight, rowptr, x, share_edges: int,
         return out
     carry = torch.empty(share_workspace_shape(e, d, share_edges),
                         dtype=torch.float32, device=x.device)
+    pack_shape = pack_workspace_shape(x, precision)
+    xpack = (None if pack_shape is None else
+             torch.empty(pack_shape, dtype=torch.float32, device=x.device))
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.segment_spmm_launch(
             x.data_ptr(), src.data_ptr(), weight.data_ptr(),
             dst.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
-            carry.data_ptr(), n_rows, e, d, cuda_build.vec_width(x),
-            share_edges, PRECISIONS.index(precision),
-            int(x.dtype == torch.bfloat16), stream)
+            carry.data_ptr(), None if xpack is None else xpack.data_ptr(),
+            n_rows, x.shape[0], e, d, cuda_build.vec_width(x), share_edges,
+            PRECISIONS.index(precision), int(x.dtype == torch.bfloat16),
+            stream)
     if rc != 0:
         raise RuntimeError(f"segment_spmm launch failed: CUDA error {rc}")
     return out
+
+
+def share_pass_usage(precision: str, dtype: torch.dtype, vec: int, d: int,
+                     share_edges: int = SHARE_EDGES,
+                     lib: ctypes.CDLL | None = None) -> dict:
+    """What the share pass's instance for ``precision`` on an x of
+    ``dtype`` with ``vec``-element pieces uses, launched for rows of
+    ``d`` elements (the card's runtime: registers and local memory per
+    thread, resident blocks per SM, threads per block), in ``lib`` (a
+    build of ``csrc/segment_spmm.cu``; the module's by default).  For
+    ``chip_smoke.py`` and ``diag/share_passes.py``."""
+    _check_precision(precision)
+    info = (ctypes.c_int * 4)()
+    rc = _bind(lib or _library()).segment_spmm_share_usage(
+        PRECISIONS.index(precision), int(dtype == torch.bfloat16), vec, d,
+        share_edges, info)
+    if rc != 0:
+        raise RuntimeError(f"segment_spmm_share_usage failed: CUDA error "
+                           f"{rc}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm",
+                     "threads"), info))
 
 
 def segment_spmm_transpose(rev_src: torch.Tensor, rev_dst: torch.Tensor,
@@ -484,12 +549,21 @@ def weight_cotangent(graph, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("segment_spmm")
+    return _bind(cuda_build.load("segment_spmm"))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with its C entry points' argument types set."""
     fn = lib.segment_spmm_launch
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         ll, i = ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, i,
-                       vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, i,
+                       i, i, vp]
         fn.restype = ctypes.c_int
+    usage = lib.segment_spmm_share_usage
+    if usage.argtypes is None:
+        i = ctypes.c_int
+        usage.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+        usage.restype = i
     return lib

@@ -31,7 +31,8 @@ summed in ``f32`` mode with the edge weight only: each term is
 ``bf16(bf16(weight[e])·msgs[e])``, as the JAX package's ``x[src] *
 w.astype(bf16)`` forms it, the sum is taken in f32 and the bf16 output
 rounded once per element (``out=``: ``bf16(out + Σ)``).  The kernel
-reads the bf16 rows itself.  The other modes take f32 messages.
+stages the bf16 rows through the same share pass as f32 messages.  The
+other modes take f32 messages.
 
 ``bm`` and ``ec`` define the stream mode only.  The kernel runs the
 other three modes on equal edge shares of ``SHARE_EDGES`` edges, one
@@ -199,9 +200,10 @@ def _check_cuda_args(msgs, dst, rowptr, out, weight, mode):
 
 
 def _lane_width(d: int, out: torch.Tensor) -> int:
-    """Floats per lane of the kernel's shared-memory reads and output
-    stores: the widest that divides the row and the output's alignment,
-    narrowed while half a warp would cover the row."""
+    """Elements (of the messages' type) per lane of the share pass's
+    shared-memory reads and output stores: the widest that divides the
+    row and the output's alignment, narrowed while half a warp would
+    cover the row."""
     vec = cuda_build.vec_width(out)
     while vec > 1 and d <= 16 * vec:
         vec //= 2
@@ -224,9 +226,9 @@ def block_segment_sum(msgs: torch.Tensor, dst: torch.Tensor,
     launches the kernel (f32 ``msgs``/``out``/``weight``, or bf16
     ``msgs``/``out`` in f32 mode with the f32 weight, int32 ``dst``,
     int64 ``rowptr``, all contiguous on one card; any other input
-    raises); f32, bf16 and hilo run a share pass and a carry pass over
-    a workspace of one (2, D) slot pair per block of shares (per share
-    for bf16 messages), sized by the kernel's library.  The output has
+    raises); f32, bf16 and hilo, and bf16 messages, run one share pass
+    and a carry pass over a workspace of one (2, D) slot pair per block
+    of shares, sized by the kernel's library.  The output has
     the messages' dtype.  A CPU
     ``msgs`` runs :func:`block_segment_sum_plain`.
     ``block_segment_sum.launches`` counts kernel launches."""
@@ -263,8 +265,8 @@ def _block_segment_sum_cuda(msgs, dst, rowptr, mode, out, weight, bm, ec,
     lib = _library()
     carry = None
     if mode != "stream":
-        # one carry slot pair per block of the share pass (per share for
-        # bf16 messages), as the .cu lays its grid out
+        # one carry slot pair per block of the share pass, as the .cu
+        # lays its grid out for the messages' element size
         rows = lib.block_segment_sum_carry_rows(e, d, int(weight is not None),
                                                 share_edges, int(bf16))
         if rows < 0:
@@ -274,22 +276,44 @@ def _block_segment_sum_cuda(msgs, dst, rowptr, mode, out, weight, bm, ec,
                             device=msgs.device)
     with torch.cuda.device(msgs.device):
         stream = torch.cuda.current_stream(msgs.device).cuda_stream
-        # bf16: the widest piece both the messages and out allow
-        vec = (min(cuda_build.vec_width(msgs), cuda_build.vec_width(out))
-               if bf16 else _lane_width(d, out))
         rc = lib.block_segment_sum_launch(
             msgs.data_ptr(), dst.data_ptr(), rowptr.data_ptr(),
             None if weight is None else weight.data_ptr(), out.data_ptr(),
             None if carry is None else carry.data_ptr(), n_rows, e, d,
-            vec, MODES.index(mode), bm, ec, share_edges,
+            _lane_width(d, out), MODES.index(mode), bm, ec, share_edges,
             int(accumulate), int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"block_segment_sum launch failed: CUDA error {rc}")
     return out
 
 
+def share_pass_usage(mode: str, weighted: bool, dtype: torch.dtype,
+                     vec: int, d: int,
+                     lib: ctypes.CDLL | None = None) -> dict:
+    """What the share pass's instance for ``mode`` (f32, bf16, hilo;
+    ``weighted``: with the edge weight) on messages of ``dtype`` with
+    ``vec``-element pieces uses on rows of ``d`` elements (the card's
+    runtime: registers and local memory per thread, resident blocks per
+    SM, threads per block), in ``lib`` (a build of
+    ``csrc/segment_sum.cu``; the module's by default).  For
+    ``chip_smoke.py`` and ``diag/share_passes.py``."""
+    info = (ctypes.c_int * 4)()
+    rc = _bind(lib or _library()).block_segment_sum_share_usage(
+        MODES.index(mode), int(weighted), int(dtype == torch.bfloat16), vec,
+        d, info)
+    if rc != 0:
+        raise RuntimeError(f"block_segment_sum_share_usage failed: CUDA "
+                           f"error {rc}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm",
+                     "threads"), info))
+
+
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("segment_sum")
+    return _bind(cuda_build.load("segment_sum"))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with its C entry points' argument types set."""
     fn = lib.block_segment_sum_launch
     if fn.argtypes is None:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -301,4 +325,9 @@ def _library() -> ctypes.CDLL:
         rows.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int]
         rows.restype = ctypes.c_longlong
+    usage = lib.block_segment_sum_share_usage
+    if usage.argtypes is None:
+        i = ctypes.c_int
+        usage.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+        usage.restype = i
     return lib

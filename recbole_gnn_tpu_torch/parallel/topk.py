@@ -38,7 +38,10 @@ def distributed_full_sort_topk(user_emb: torch.Tensor,
       group: the process group the blocks lie over (None: one block).
       n_valid_items: real catalog size; rows at and past it (the pad to
         the shard multiple) are masked on every rank.
+
+    ``distributed_full_sort_topk.launches`` counts the calls.
     """
+    distributed_full_sort_topk.launches += 1
     shard_size = item_shard.shape[0]
     if k > shard_size:
         raise ValueError(f"k={k} exceeds the {shard_size} rows of a shard")
@@ -65,6 +68,9 @@ def distributed_full_sort_topk(user_emb: torch.Tensor,
     g_cat = all_gather_cat(gidx, group, dim=1)
     vm, im = masked_topk(v_cat, k)
     return vm, torch.gather(g_cat, 1, im)
+
+
+distributed_full_sort_topk.launches = 0
 
 
 def item_shard(item_table: torch.Tensor, group) -> torch.Tensor:
