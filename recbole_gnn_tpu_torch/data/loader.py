@@ -20,6 +20,7 @@ import numpy as np
 
 from recbole_gnn_tpu_torch.data.sampler import (
     PopularityNegativeSampler, UniformNegativeSampler)
+from recbole_gnn_tpu_torch.utils import trace
 
 
 def _eval_sampler_cls(distribution: str):
@@ -90,19 +91,26 @@ class TrainLoader:
         return -(-len(self.users) // self.batch_size)
 
     def __iter__(self) -> Iterator[Batch]:
+        # the spans ``shuffle`` (the permutation and the index), the
+        # sampler's ``sample`` and ``batch`` (a slice and its padding)
+        # each close before a yield, inside the next() that runs them
         rng = np.random.default_rng((self.seed, self.epoch))
         self.epoch += 1
-        perm = rng.permutation(len(self.users))
-        users, items = self.users[perm], self.items[perm]
+        with trace.span("shuffle"):
+            perm = rng.permutation(len(self.users))
+            users, items = self.users[perm], self.items[perm]
         negs = (self.sampler.sample(users, self.neg_num, rng)
                 if self.neg_num else None)
         for lo in range(0, len(users), self.batch_size):
-            hi = min(lo + self.batch_size, len(users))
-            arrays = {"user_id": users[lo:hi], "item_id": items[lo:hi]}
-            if negs is not None:
-                nb = negs[lo:hi]
-                arrays["neg_item_id"] = nb[:, 0] if self.neg_num == 1 else nb
-            yield _pad_batch(arrays, self.batch_size)
+            with trace.span("batch"):
+                hi = min(lo + self.batch_size, len(users))
+                arrays = {"user_id": users[lo:hi], "item_id": items[lo:hi]}
+                if negs is not None:
+                    nb = negs[lo:hi]
+                    arrays["neg_item_id"] = (nb[:, 0] if self.neg_num == 1
+                                             else nb)
+                batch = _pad_batch(arrays, self.batch_size)
+            yield batch
 
 
 class FullSortEvalLoader:

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from recbole_gnn_tpu_torch.utils import trace
+
 
 class UniformNegativeSampler:
 
@@ -42,16 +44,26 @@ class UniformNegativeSampler:
         """(len(users), num) negatives ∈ [1, n_items) avoiding used pairs.
 
         After ``max_tries`` redraw rounds, remaining collisions are kept
-        (matches RecBole's bounded-retry behavior for dense users)."""
-        flat_users = np.repeat(users, num)
-        cand = self._draw(len(flat_users), rng)
-        bad = self._is_used(flat_users, cand)
-        tries = 0
-        while bad.any() and tries < max_tries:
-            cand[bad] = self._draw(int(bad.sum()), rng)
+        (matches RecBole's bounded-retry behavior for dense users).
+
+        The call is the span ``sample``, with two counters
+        (``utils/trace.py``): ``checked``, the pairs tested against the
+        used set over every round, and ``drawn``, the negatives
+        returned."""
+        with trace.span("sample"):
+            flat_users = np.repeat(users, num)
+            cand = self._draw(len(flat_users), rng)
             bad = self._is_used(flat_users, cand)
-            tries += 1
-        return cand.reshape(len(users), num)
+            checked = len(cand)
+            tries = 0
+            while bad.any() and tries < max_tries:
+                cand[bad] = self._draw(int(bad.sum()), rng)
+                bad = self._is_used(flat_users, cand)
+                checked += len(cand)
+                tries += 1
+            trace.count("checked", checked)
+            trace.count("drawn", len(cand))
+            return cand.reshape(len(users), num)
 
 
 class PopularityNegativeSampler(UniformNegativeSampler):

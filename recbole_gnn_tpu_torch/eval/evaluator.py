@@ -39,6 +39,7 @@ from recbole_gnn_tpu_torch.ops.topk import NEG_INF, masked_topk
 from recbole_gnn_tpu_torch.parallel.mesh import axis_group, axis_size
 from recbole_gnn_tpu_torch.parallel.topk import (distributed_full_sort_topk,
                                                  item_shard)
+from recbole_gnn_tpu_torch.utils import trace
 from recbole_gnn_tpu_torch.utils.enums import ModelType
 
 # bytes of (users, n_items) f32 scores one full-sort chunk may make
@@ -69,6 +70,8 @@ class Evaluator:
         self.n_items = model.n_items
         self.is_sequential = model.model_type == ModelType.SEQUENTIAL
         self.mesh = mesh
+        # the last evaluate()'s span, in seconds
+        self.last_seconds = None
 
     # -- per-batch scoring --------------------------------------------
 
@@ -137,15 +140,24 @@ class Evaluator:
     # -- public API -----------------------------------------------------
 
     def evaluate(self, params, extras, loader, mode: str = "full") -> dict:
-        """Run a full evaluation pass; returns {metric@k: float}."""
+        """Run a full evaluation pass; returns {metric@k: float}.  The
+        pass is the span ``evaluate``, a factorized model's propagation
+        the span ``propagate`` inside it (``utils/trace.py``)."""
+        with trace.span("evaluate") as sp:
+            out = self._evaluate(params, extras, loader, mode)
+        self.last_seconds = sp.seconds
+        return out
+
+    def _evaluate(self, params, extras, loader, mode: str) -> dict:
         totals: dict[str, torch.Tensor] = {}
         with torch.no_grad():
             if self.is_sequential:
                 def batch_sums(b):
                     return self._sequential_sums(params, extras, b, mode)
             elif self.model.factorized_eval:
-                user_all, item_all = self.model.propagate(
-                    params, self.model.consts, extras)
+                with trace.span("propagate"):
+                    user_all, item_all = self.model.propagate(
+                        params, self.model.consts, extras)
                 item_block = (item_shard(item_all,
                                          axis_group(self.mesh, "tp"))
                               if self._use_dist_eval(mode) else None)

@@ -47,6 +47,7 @@ from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
                                                    save_checkpoint)
 from recbole_gnn_tpu_torch.train.optim import (make_optimizer, tree_leaves,
                                                tree_map, tree_unflatten)
+from recbole_gnn_tpu_torch.utils import trace
 from recbole_gnn_tpu_torch.utils.logging import JsonlSink, get_logger
 
 
@@ -115,14 +116,19 @@ class Trainer:
                    mode: int = 0) -> torch.Tensor:
         """Loss, gradients and one in-place optimizer update on a device
         batch; returns the detached loss (a device scalar)."""
-        leaves = tree_leaves(params)
-        loss, _aux = self.model.calculate_loss(params, consts, extras, batch,
-                                               rng, mode=mode)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        self.optimizer.update(tree_unflatten(params, grads), opt_state, params)
-        return loss.detach()
+        with trace.span("step"):
+            leaves = tree_leaves(params)
+            with trace.span("forward"):
+                loss, _aux = self.model.calculate_loss(
+                    params, consts, extras, batch, rng, mode=mode)
+            with trace.span("backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)]
+            with trace.span("optimizer"):
+                self.optimizer.update(tree_unflatten(params, grads),
+                                      opt_state, params)
+            return loss.detach()
 
     # -- training loop --------------------------------------------------
 
@@ -132,7 +138,20 @@ class Trainer:
         ``resume_from_checkpoint()``) training continues from the
         restored state at the checkpointed epoch + 1; the loader's
         shuffle stream is realigned and the best score is restored, so a
-        post-resume validation never overwrites a better saved model."""
+        post-resume validation never overwrites a better saved model.
+
+        The whole call is the span ``fit``, each epoch's batch loop the
+        span ``epoch`` (``utils/trace.py``); the jsonl ``train_epoch``
+        event's ``seconds`` is that span's, and its ``spans`` are the
+        ``{path: [count, total_ms]}`` of the spans closed since the
+        previous ``train_epoch`` event (this epoch's loop and the
+        validation after the previous epoch)."""
+        with trace.span("fit"):
+            return self._fit(train_loader, valid_loader, saved, verbose,
+                             callback, resume)
+
+    def _fit(self, train_loader, valid_loader, saved, verbose, callback,
+             resume):
         cfg = self.config
         seed = int(cfg.get("seed", 2020))
         start_epoch = 0
@@ -181,6 +200,7 @@ class Trainer:
 
         cur_step = 0
         calib_batch = None
+        mark = trace.totals()
         for epoch in range(start_epoch, self.epochs):
             rng = _epoch_generator(seed, epoch)
             extras = self.model.epoch_start(
@@ -193,25 +213,27 @@ class Trainer:
                 # skip epoch 0 (first-touch allocations) and trace one
                 prof = torch.profiler.profile(activities=self._activities())
                 prof.start()
-            t0 = time.time()
             loss_sum = None
             n_examples = 0
-            for i, batch in enumerate(train_loader):
-                if i == 0:
-                    calib_batch = batch   # host copy
-                loss = step_fns[mode](params, opt_state, consts, extras,
-                                      self._place(batch), rng)
-                # running device-scalar sum, read once at epoch end
-                loss_sum = loss if loss_sum is None else loss_sum + loss
-                w = batch.get("weight")
-                n_examples += int(w.sum()) if w is not None else \
-                    len(next(iter(batch.values())))
-                if verbose and i and i % 500 == 0:
-                    self.logger.info(
-                        f"epoch {epoch} step {i}: "
-                        f"{(time.time() - t0) / i * 1e3:.0f} ms/step")
-            total = float(loss_sum) if loss_sum is not None else 0.0
-            dt = time.time() - t0
+            with trace.span("epoch") as ep:
+                for i, batch in enumerate(train_loader):
+                    if i == 0:
+                        calib_batch = batch   # host copy
+                    with trace.span("to_device"):
+                        dev_batch = self._place(batch)
+                    loss = step_fns[mode](params, opt_state, consts, extras,
+                                          dev_batch, rng)
+                    # running device-scalar sum, read once at epoch end
+                    loss_sum = loss if loss_sum is None else loss_sum + loss
+                    w = batch.get("weight")
+                    n_examples += int(w.sum()) if w is not None else \
+                        len(next(iter(batch.values())))
+                    if verbose and i and i % 500 == 0:
+                        ms = (time.perf_counter_ns() - ep.t0) / i * 1e-6
+                        self.logger.info(
+                            f"epoch {epoch} step {i}: {ms:.0f} ms/step")
+                total = float(loss_sum) if loss_sum is not None else 0.0
+            dt = ep.seconds
             if prof is not None:
                 prof.stop()
                 os.makedirs(self._profile_dir, exist_ok=True)
@@ -222,7 +244,9 @@ class Trainer:
                 raise ValueError(f"NaN/Inf loss at epoch {epoch}")
             self.jsonl.write({"event": "train_epoch", "epoch": epoch,
                               "loss": total, "seconds": dt,
-                              "examples_per_s": n_examples / max(dt, 1e-9)})
+                              "examples_per_s": n_examples / max(dt, 1e-9),
+                              "spans": trace.since(mark)})
+            mark = trace.totals()
             if self._tb is not None:
                 self._tb.add_scalar("Loss/train", total, epoch)
             if verbose:
@@ -234,7 +258,6 @@ class Trainer:
                 lp, lo = self._logical(params, opt_state)
                 eval_extras = self._calibrated_extras(lp, consts, extras,
                                                       calib_batch)
-                t_eval = time.time()
                 result = self.evaluator.evaluate(lp, eval_extras,
                                                  valid_loader,
                                                  mode=_eval_mode(cfg))
@@ -244,7 +267,8 @@ class Trainer:
                 score = result.get(self.valid_metric,
                                    next(iter(result.values()), 0.0))
                 self.jsonl.write({"event": "valid", "epoch": epoch,
-                                  "seconds": time.time() - t_eval, **result})
+                                  "seconds": self.evaluator.last_seconds,
+                                  **result})
                 if self._tb is not None:
                     self._tb.add_scalar("Valid_score", score, epoch)
                 if verbose:
