@@ -124,7 +124,12 @@ the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
    params and metrics within the same tolerances.
 
 Each path runs with every launch counter set to 0 just before it and
-read just after, and the counts are checked exactly.  Then it holds one
+read just after, and the counts are checked exactly.  A training step
+replayed from its CUDA graph (``train/step_graph.py``) launches through
+no wrapper: the counters hold the kernels of the eager steps and of
+each capture, which the program's step counters give (``read_steps``),
+and the replayed steps are logged apart, with the kernels the profiler
+records in the timed window.  Then it holds one
 LightGCN training step of each impl on the kernels against the same
 step on the plain versions, and every kernel against its plain version
 at the slice shape and at edge-case shapes (a giant row, rows and empty
@@ -359,8 +364,11 @@ def counters():
 
 
 def reset_counts():
+    """Every launch counter and the program's span store to 0."""
+    from recbole_gnn_tpu_torch.utils import trace
     for fn in counters().values():
         fn.launches = 0
+    trace.reset()
 
 
 def read_counts() -> dict:
@@ -370,6 +378,40 @@ def read_counts() -> dict:
     c["segment_spmm"] -= c["segment_spmm_transpose"]
     c["ell_spmm"] -= c["ell_spmm_transpose"]
     return c
+
+
+def read_steps(path: str = "fit/epoch/step") -> dict:
+    """The training steps at ``path`` since ``reset_counts`` (both
+    buckets of the program's span store): ``steps``, those ``replayed``
+    from a captured CUDA graph, the ``captures``, and ``issued``: the
+    steps whose kernels went through the wrappers, so into the launch
+    counters (the eager ones and each capture; a replay launches through
+    no wrapper, and what it runs is measured by the profiler in
+    ``time_train_steps``)."""
+    from recbole_gnn_tpu_torch.utils import trace
+    out = {"steps": 0, "replayed": 0, "captures": 0}
+    for spans in trace.snapshot().values():
+        if path in spans:
+            for k in ("steps", "replayed"):
+                out[k] += spans[path]["counters"].get(k, 0)
+        if f"{path}/capture" in spans:
+            out["captures"] += spans[f"{path}/capture"]["count"]
+    out["issued"] = out["steps"] - out["replayed"] + out["captures"]
+    return out
+
+
+def fit_steps(tag: str, want_steps: int) -> dict:
+    """``read_steps`` after a run that took ``want_steps`` training
+    steps, checked and logged."""
+    st = read_steps()
+    log(f"[{tag}] training steps: {st['steps']}, {st['replayed']} of them "
+        f"replayed from a CUDA graph ({st['captures']} captures); the "
+        f"launch counters hold the kernels of {st['issued']} (the eager "
+        "steps and the captures)")
+    if st["steps"] != want_steps:
+        raise AssertionError(f"[{tag}] {st['steps']} training steps, "
+                             f"expected {want_steps}")
+    return st
 
 
 # -- timing and bounds ------------------------------------------------------
@@ -1145,8 +1187,10 @@ def train_config(tmp: str, impl: str, model: str = "LightGCN") -> dict:
 
 def expected_train_counts(impl: str, steps: int, n_evals: int,
                           model: str = "LightGCN") -> dict:
-    """Per step the model's propagations, each N_LAYERS SpMMs forward and
-    N_LAYERS transpose SpMMs back, and N_LAYERS forward per evaluation.
+    """Per step (of those whose kernels went through the wrappers:
+    ``read_steps``'s ``issued``) the model's propagations, each N_LAYERS
+    SpMMs forward and N_LAYERS transpose SpMMs back, and N_LAYERS forward
+    per evaluation.
     ell: K2 forward, K2ᵀ back; pallas: K1 forward, K1ᵀ back; xla: D2
     and D1 once per layer in each forward and each backward."""
     prop = N_LAYERS * PROPAGATIONS[model] * steps
@@ -1189,8 +1233,10 @@ def time_train_steps(trainer, model, state: dict, host_batches: list,
     the impl, its device µs per launch in the step (the sum over its
     kernels of each one's time over its records: a launch runs each of
     them once; a transpose launches through its forward wrapper), beside
-    the launches its counter took in the window; empty where the
-    profiler records no device activity."""
+    the launches its counter took in the window and the steps of the
+    window replayed from a CUDA graph (a replay launches through no
+    wrapper: its kernels are in the profiler's records alone); empty
+    where the profiler records no device activity."""
     from recbole_gnn_tpu_torch.diag.timing import kernel_records
     from recbole_gnn_tpu_torch.eval.evaluator import to_device
     from recbole_gnn_tpu_torch.train.checkpoint import params_from_numpy
@@ -1218,6 +1264,7 @@ def time_train_steps(trainer, model, state: dict, host_batches: list,
     window = host_batches[5 + TIMED_STEPS:]
     wrappers = counters()
     before = {k: wrappers[k].launches for k in STEP_KERNELS[impl]}
+    replayed = read_steps("step")["replayed"]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1226,6 +1273,7 @@ def time_train_steps(trainer, model, state: dict, host_batches: list,
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     launches = {k: wrappers[k].launches - n for k, n in before.items()}
+    replayed = read_steps("step")["replayed"] - replayed
     device_us, records = kernel_records(prof)
     profile = {}
     if device_us:
@@ -1237,6 +1285,7 @@ def time_train_steps(trainer, model, state: dict, host_batches: list,
                    "device_busy_share": busy / wall_us,
                    "top_ms_per_step": {k: v / len(window) / 1e3
                                        for k, v in top},
+                   "replayed_steps": replayed,
                    "launches_per_step": {k: n / len(window)
                                          for k, n in launches.items()},
                    "records_per_step": {
@@ -1364,11 +1413,12 @@ def train_path(tmp: str, impl: str, dev, model_name: str = "LightGCN"
     if not res["test_result"]["recall@10"] > 0:
         raise AssertionError(f"[{tag}] test recall@10 is 0")
     n_evals = len(valids) + 1
-    want = expected_train_counts(impl, steps, n_evals, model_name)
+    issued = fit_steps(tag, epochs * steps)["issued"]
+    want = expected_train_counts(impl, issued, n_evals, model_name)
     log(f"[{tag}] train launches: {counts} (expected {want}: "
         f"{N_LAYERS} layers x ({PROPAGATIONS[model_name]} propagations x "
-        f"{epochs} x {steps} steps forward and back + {n_evals} "
-        "evaluations forward))")
+        f"{issued} steps forward and back + {n_evals} evaluations "
+        "forward))")
     if counts != want:
         raise AssertionError(f"[{tag}] training launch counts differ")
     log(f"[{tag}] train peak device memory (max_memory_allocated): "
@@ -1811,13 +1861,14 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
                       {k: v for k, v in e.items() if "@" in k})
     check_metrics(f"[{tag}] test", res["test_result"])
     n_evals = len(valids) + 1
-    prop = GENERAL_STEP_SPMMS[model_name] * epochs * steps
+    issued = fit_steps(tag, epochs * steps)["issued"]
+    prop = GENERAL_STEP_SPMMS[model_name] * issued
     want = {k: 0 for k in counters()}
     want.update(ell_spmm=prop + GENERAL_EVAL_SPMMS[model_name] * n_evals,
                 ell_spmm_transpose=prop)
     log(f"[{tag}] train launches: {counts} (expected {want}: "
         f"{GENERAL_STEP_SPMMS[model_name]} K2 and as many K2T per step x "
-        f"{epochs} x {steps} steps + {GENERAL_EVAL_SPMMS[model_name]} K2 x "
+        f"{issued} steps + {GENERAL_EVAL_SPMMS[model_name]} K2 x "
         f"{n_evals} evaluations)")
     if counts != want:
         raise AssertionError(f"[{tag}] training launch counts differ")
@@ -2738,12 +2789,13 @@ def cycled_batches(loader, n: int) -> list:
     return out[:n]
 
 
-def social_counts(impl: str, model_name: str, steps: int, epochs: int,
+def social_counts(impl: str, model_name: str, steps: int,
                   n_evals: int) -> dict:
-    """Per step SOCIAL_STEP_SPMMS products forward and as many back, per
-    evaluation SOCIAL_EVAL_SPMMS forward: ell K2 forward and K2T back;
-    pallas K1 and K1T; xla D2 and D1 once per product each way."""
-    prop = SOCIAL_STEP_SPMMS[model_name] * epochs * steps
+    """Per step (of those whose kernels went through the wrappers)
+    SOCIAL_STEP_SPMMS products forward and as many back, per evaluation
+    SOCIAL_EVAL_SPMMS forward: ell K2 forward and K2T back; pallas K1 and
+    K1T; xla D2 and D1 once per product each way."""
+    prop = SOCIAL_STEP_SPMMS[model_name] * steps
     fwd = prop + SOCIAL_EVAL_SPMMS[model_name] * n_evals
     want = {k: 0 for k in counters()}
     if impl == "ell":
@@ -2814,10 +2866,11 @@ def social_path(tmp: str, model_name: str, dev, impl: str = "ell") -> dict:
                       {k: v for k, v in e.items() if "@" in k})
     check_metrics(f"[{tag}] test", res["test_result"])
     n_evals = len(valids) + 1
-    want = social_counts(impl, model_name, steps, epochs, n_evals)
+    issued = fit_steps(tag, epochs * steps)["issued"]
+    want = social_counts(impl, model_name, issued, n_evals)
     log(f"[{tag}] train launches: {counts} (expected {want}: "
         f"{SOCIAL_STEP_SPMMS[model_name]} products forward and as many "
-        f"back per step x {epochs} x {steps} steps + "
+        f"back per step x {issued} steps + "
         f"{SOCIAL_EVAL_SPMMS[model_name]} forward x {n_evals} evaluations)")
     if counts != want:
         raise AssertionError(f"[{tag}] training launch counts differ")
@@ -3368,6 +3421,7 @@ def parallel_main(tmp: str, out_path: str) -> int:
                                  config_dict=cd, saved=True, verbose=False)
     paths["parallel_single_train"] = read_counts()
     summary["single_run_s"] = time.perf_counter() - t0
+    single_steps = summary["single_steps"] = read_steps()
     config = Config(model="LightGCN", dataset="gowalla_shape",
                     config_dict=cd)
     with capped_train_steps(PARALLEL_STEPS):
@@ -3402,11 +3456,26 @@ def parallel_main(tmp: str, out_path: str) -> int:
     for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
               "LOCAL_RANK"):
         del os.environ[k]
-    if paths["parallel_nccl_train"] != paths["parallel_single_train"]:
+
+    def rest(counts: dict, issued: int) -> dict:
+        # the launches less N_LAYERS K2 and K2T for each step whose
+        # kernels went through the wrappers: the evaluations' K2
+        out = dict(counts)
+        for k in ("ell_spmm", "ell_spmm_transpose"):
+            out[k] -= N_LAYERS * issued
+        return out
+    # --distributed runs the mesh's sharded step, never captured (and
+    # outside ``train_step``'s counters): each of the run's steps, as
+    # many as the single run's, launches through the wrappers
+    nccl_rest = rest(paths["parallel_nccl_train"], single_steps["steps"])
+    if (nccl_rest != rest(paths["parallel_single_train"],
+                          single_steps["issued"])
+            or nccl_rest["ell_spmm_transpose"]):
         raise AssertionError(
             f"[parallel nccl] launches {paths['parallel_nccl_train']} "
-            f"against the run without --distributed "
-            f"{paths['parallel_single_train']}")
+            f"({single_steps['steps']} eager steps) against the run "
+            f"without --distributed {paths['parallel_single_train']} "
+            f"({single_steps})")
     worst_i = hold_metrics("parallel nccl", nccl["test_result"],
                            single["test_result"], PARALLEL_METRIC_ATOL)
     ckpt = "LightGCN-gowalla_shape.ckpt"

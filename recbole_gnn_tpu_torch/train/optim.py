@@ -7,7 +7,8 @@ gradients *before* the moment updates — coupled ``torch.optim.Adam``
 semantics, not decoupled AdamW.
 
 Not ``torch.optim``: the state keeps the JAX package's layout —
-``{"m", "v", "t"}`` for Adam with ``t`` a 0-d int32 tensor,
+``{"m", "v", "t"}`` for Adam with ``t`` a 0-d int32 tensor (counted
+up in place),
 ``{"acc"}`` for adagrad, ``{"v"}`` for rmsprop, ``{}`` for sgd — so a
 checkpoint cross-loads between the two packages, and the clip divides
 by ``max(gnorm, 1e-12)`` (``torch.nn.utils.clip_grad_norm_`` adds
@@ -96,7 +97,10 @@ def make_optimizer(learner: str = "adam", lr: float = 1e-3,
         def update(grads, state, params):
             with torch.no_grad():
                 gs = preprocess(grads, params)
-                t = state["t"] + 1
+                # the step count in place, so that the state's tensors
+                # stay the same objects step after step (a captured step
+                # replays reads and writes of the same memory)
+                t = state["t"].add_(1)
                 tf = t.to(torch.float32)
                 # bias corrections in float32, as the JAX package does
                 bc1 = 1 - torch.full((), b1, dtype=torch.float32,
@@ -109,7 +113,6 @@ def make_optimizer(learner: str = "adam", lr: float = 1e-3,
                     m.mul_(b1).add_((1 - b1) * g)
                     v.mul_(b2).add_((1 - b2) * g * g)
                     p.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
-                state["t"] = t
             return params, state
 
     elif learner == "sgd":

@@ -7,9 +7,11 @@ refresh), ``loss_mode`` (warm-up variants) and ``serving_calibrate``.
 One optimizer step per batch: ``model.calculate_loss`` (on a sparse
 graph: K forward SpMM kernels), ``torch.autograd.grad`` (K transpose
 SpMM kernels), then the functional in-place update of
-``train/optim.py``.  The loss is summed on the device and read once per
-epoch; batches go to the device as int64 tensors.  ``epoch_scan`` (a
-TPU dispatch knob) is accepted and runs the same per-step loop.
+``train/optim.py``; on the card, once captured, the whole step replays
+as one CUDA graph (``train/step_graph.py``).  The loss is summed on the
+device and read once per epoch; batches go to the device as int64
+tensors.  ``epoch_scan`` (a TPU dispatch knob) is accepted and runs the
+same per-step loop.
 
 A fresh ``fit`` draws its params from a ``torch.Generator`` seeded with
 ``seed`` (the draws differ from the JAX package's; parity runs start
@@ -47,6 +49,7 @@ from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
                                                    save_checkpoint)
 from recbole_gnn_tpu_torch.train.optim import (make_optimizer, tree_leaves,
                                                tree_map, tree_unflatten)
+from recbole_gnn_tpu_torch.train.step_graph import StepGraphs
 from recbole_gnn_tpu_torch.utils import trace
 from recbole_gnn_tpu_torch.utils.logging import JsonlSink, get_logger
 
@@ -80,6 +83,7 @@ class Trainer:
         self.saved_model_file = os.path.join(
             ckpt_dir, f"{config['model']}-{config['dataset']}.ckpt")
         self.train_timings: list[float] = []
+        self._graphs = StepGraphs(self.device)
         self._mesh = None
         # the mesh's state: tp pad plan ({}: none), row-sharding spec
         self._pad_plan: dict = {}
@@ -115,20 +119,33 @@ class Trainer:
     def train_step(self, params, opt_state, consts, extras, batch, rng,
                    mode: int = 0) -> torch.Tensor:
         """Loss, gradients and one in-place optimizer update on a device
-        batch; returns the detached loss (a device scalar)."""
+        batch; returns the detached loss (a device scalar).  On a CUDA
+        device without a mesh the step is captured in a CUDA graph once
+        its first eager step shows that it can be, and replayed from
+        then on (``train/step_graph.py``); the span ``step`` counts
+        ``steps`` and ``replayed``."""
         with trace.span("step"):
-            leaves = tree_leaves(params)
-            with trace.span("forward"):
-                loss, _aux = self.model.calculate_loss(
-                    params, consts, extras, batch, rng, mode=mode)
-            with trace.span("backward"):
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-                grads = [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(leaves, grads)]
-            with trace.span("optimizer"):
-                self.optimizer.update(tree_unflatten(params, grads),
-                                      opt_state, params)
-            return loss.detach()
+            trace.count("steps", 1)
+            if self.device.type != "cuda" or self._mesh is not None:
+                return self._eager_step(params, opt_state, consts, extras,
+                                        batch, rng, mode)
+            return self._graphs.step(self._eager_step, params, opt_state,
+                                     consts, extras, batch, rng, mode)
+
+    def _eager_step(self, params, opt_state, consts, extras, batch, rng,
+                    mode: int) -> torch.Tensor:
+        leaves = tree_leaves(params)
+        with trace.span("forward"):
+            loss, _aux = self.model.calculate_loss(
+                params, consts, extras, batch, rng, mode=mode)
+        with trace.span("backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+        with trace.span("optimizer"):
+            self.optimizer.update(tree_unflatten(params, grads),
+                                  opt_state, params)
+        return loss.detach()
 
     # -- training loop --------------------------------------------------
 
