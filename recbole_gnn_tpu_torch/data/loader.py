@@ -10,6 +10,10 @@ packages.  Every batch of an epoch has the same shapes — the last one
 is padded by repeating row 0 with a ``weight`` of 0 — so losses and
 metric sums ignore the padding.  A session batch is a slice of the
 dataset's padded session (and session-graph) arrays.
+
+The two training loaders open the same spans, ``shuffle`` and
+``batch`` (their docstrings say what each covers); the evaluation
+loaders open none: the evaluator's spans time them.
 """
 
 from __future__ import annotations
@@ -74,7 +78,13 @@ def _padded_user_rows(users: np.ndarray, items: np.ndarray,
 
 class TrainLoader:
     """Pairwise (user, pos, neg·k) batches with per-epoch reshuffle +
-    fresh negative sampling — the general-model train path."""
+    fresh negative sampling — the general-model train path.
+
+    Spans (``utils/trace.py``; under ``fit/epoch/`` inside ``fit``):
+    ``shuffle`` (the epoch's permutation and index), the sampler's
+    ``sample`` (the epoch's negatives, at its first batch) and one
+    ``batch`` a batch (its slice and padding).  Each closes before the
+    ``yield``, as :class:`SequentialTrainLoader`'s do."""
 
     def __init__(self, dataset, config, seed_offset: int = 0):
         self.users, self.items = dataset.user_item_arrays()
@@ -91,9 +101,6 @@ class TrainLoader:
         return -(-len(self.users) // self.batch_size)
 
     def __iter__(self) -> Iterator[Batch]:
-        # the spans ``shuffle`` (the permutation and the index), the
-        # sampler's ``sample`` and ``batch`` (a slice and its padding)
-        # each close before a yield, inside the next() that runs them
         rng = np.random.default_rng((self.seed, self.epoch))
         self.epoch += 1
         with trace.span("shuffle"):
@@ -241,7 +248,20 @@ def _session_batch(dataset, rows: np.ndarray) -> Batch:
 class SequentialTrainLoader:
     """Shuffled batches of padded session rows (+ graph arrays).  The
     sequential family trains without negative sampling (CE over the
-    catalog — reference sequential_base.yaml)."""
+    catalog — reference sequential_base.yaml); with
+    ``train_neg_sample_args`` each batch draws its own negatives.
+
+    Spans (``utils/trace.py``; under ``fit/epoch/`` inside ``fit``):
+    ``shuffle`` (the epoch's permutation) and one ``batch`` a batch
+    (its rows' slices of the session and session-graph arrays, the
+    sampler's ``sample`` nested where negatives are drawn, and the
+    padding).  Each closes before the ``yield``, as
+    :class:`TrainLoader`'s do.  Counters under ``batch``: ``rows`` (real
+    rows), ``padded_rows`` (the rows the padding adds), ``positions``
+    (the clicks of the real rows, Σ ``item_seq_len``) and ``slots``
+    (every row's ``MAX_ITEM_LIST_LENGTH`` positions, padding rows
+    included): ``positions / slots`` is the share of the batch's dense
+    (B, L) work that holds a click."""
 
     def __init__(self, dataset, config, seed_offset: int = 0):
         self.dataset = dataset
@@ -262,14 +282,23 @@ class SequentialTrainLoader:
     def __iter__(self) -> Iterator[Batch]:
         rng = np.random.default_rng((self.seed, self.epoch))
         self.epoch += 1
-        perm = rng.permutation(self.n)
+        with trace.span("shuffle"):
+            perm = rng.permutation(self.n)
         for lo in range(0, self.n, self.batch_size):
-            rows = perm[lo:lo + self.batch_size]
-            b = _session_batch(self.dataset, rows)
-            if self.neg_num:
-                negs = self.sampler.sample(b["user_id"], self.neg_num, rng)
-                b["neg_item_id"] = negs[:, 0] if self.neg_num == 1 else negs
-            yield _pad_batch(b, self.batch_size)
+            with trace.span("batch"):
+                rows = perm[lo:lo + self.batch_size]
+                b = _session_batch(self.dataset, rows)
+                if self.neg_num:
+                    negs = self.sampler.sample(b["user_id"], self.neg_num,
+                                               rng)
+                    b["neg_item_id"] = (negs[:, 0] if self.neg_num == 1
+                                        else negs)
+                batch = _pad_batch(b, self.batch_size)
+                trace.count("rows", len(rows))
+                trace.count("padded_rows", self.batch_size - len(rows))
+                trace.count("positions", b["item_seq_len"].sum())
+                trace.count("slots", batch["item_seq"].size)
+            yield batch
 
 
 class SequentialFullSortEvalLoader:
