@@ -7,7 +7,8 @@ benchmark's six readers of them.
 * Spans opened under a ``torch.profiler`` session go to their own
   bucket and enter a host range ``"rgt/" + path``, nested as the spans
   are; outside a session none is entered.
-* The sampler's ``checked`` / ``drawn`` equal a hand count.
+* The sampler's ``checked`` / ``bitset_tests`` / ``drawn`` equal a
+  hand count.
 * A CPU ``fit`` puts its spans under ``fit/epoch/...`` and writes each
   epoch's spans into its ``train_epoch`` event.
 * The readers of ``forward_ms.train`` … ``sample_checks_per_negative.train``
@@ -203,18 +204,18 @@ def test_profiled_spans_are_ranges_in_their_own_bucket(monkeypatch):
 
 def _hand_count(users, used, n_items, num, seed, max_tries=100):
     """(negatives, pairs tested) of the sampler's rounds, tested with
-    Python sets."""
+    Python sets: every pair in the first round, then only the pairs
+    drawn again."""
     rng = np.random.default_rng(seed)
     flat = np.repeat(users, num)
     cand = rng.integers(1, n_items, size=len(flat), dtype=np.int64)
     checked = len(cand)
-    bad = np.array([(u, c) in used for u, c in zip(flat, cand)])
+    bad = [j for j in range(len(flat)) if (flat[j], cand[j]) in used]
     tries = 0
-    while bad.any() and tries < max_tries:
-        cand[bad] = rng.integers(1, n_items, size=int(bad.sum()),
-                                 dtype=np.int64)
-        bad = np.array([(u, c) in used for u, c in zip(flat, cand)])
-        checked += len(cand)
+    while bad and tries < max_tries:
+        cand[bad] = rng.integers(1, n_items, size=len(bad), dtype=np.int64)
+        checked += len(bad)
+        bad = [j for j in bad if (flat[j], cand[j]) in used]
         tries += 1
     return cand.reshape(len(users), num), checked
 
@@ -237,8 +238,9 @@ def test_sampler_counts_match_a_hand_count(monkeypatch):
     checked = sum(_hand_count(batch, set(log), 8, 2, s)[1] for s in (3, 4))
     agg = st.snapshot()["unprofiled"]["sample"]
     assert agg["count"] == 2
-    assert agg["counters"] == {"checked": checked, "drawn": 2 * 12}
-    assert checked > 2 * 2 * 12           # collisions forced redraws
+    assert agg["counters"] == {"checked": checked, "bitset_tests": checked,
+                               "drawn": 2 * 12}
+    assert checked > 2 * 12               # collisions forced redraws
 
 
 def test_fit_spans_land_under_fit_epoch(tmp_path):
