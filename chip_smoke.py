@@ -31,7 +31,7 @@ the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
    each, at the same shape and width;
 6. the probes: D1 and D2 at the shapes of the TPU probes they replace
    (``recbole_gnn_tpu_torch.diag.pallas_floor`` / ``.row_gather``);
-7. after every kernel check and timing below, the general family on
+7. after every kernel check below, the general family on
    ``ell`` (in a child process of the script, ``--general``), each
    model through
    ``run_recbole_gnn_tpu`` at its published yaml settings for 1 epoch
@@ -111,8 +111,8 @@ the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
    edge-sharded K2/K2ᵀ — all 4 dst-block shards of the 1,696,528 edges
    in this process — their forward blocks and summed transpose shares
    held against unsharded K2/K2ᵀ within TOL_REL_ABSSUM, with each
-   shard's edges, the imbalance (max/mean) and each shard's K2 / K2ᵀ
-   ms; (i) ``python -m recbole_gnn_tpu_torch.run --distributed`` (its
+   shard's edges and the imbalance (max/mean); (i) ``python -m
+   recbole_gnn_tpu_torch.run --distributed`` (its
    ``main``, torchrun's environment for a world of one,
    ``--mesh_shape=[1] --graph_edge_sharding=True``) on NCCL against the
    same run without it: the same launches, test metrics within 1e-3,
@@ -128,8 +128,7 @@ read just after, and the counts are checked exactly.  A training step
 replayed from its CUDA graph (``train/step_graph.py``) launches through
 no wrapper: the counters hold the kernels of the eager steps and of
 each capture, which the program's step counters give (``read_steps``),
-and the replayed steps are logged apart, with the kernels the profiler
-records in the timed window.  Then it holds one
+and the replayed steps are logged apart.  Then it holds one
 LightGCN training step of each impl on the kernels against the same
 step on the plain versions, and every kernel against its plain version
 at the slice shape and at edge-case shapes (a giant row, rows and empty
@@ -158,26 +157,16 @@ rather than TMA) at share size 1 too (``SHARE_CHECKED``), K1's and
 D1's redesigned instances (K1 ``bf16`` and ``packed`` on f32 and bf16
 x, D1 on bf16 messages) included.  It reruns K1 in every precision on
 f32 and bf16 x, K1ᵀ in every precision, K2, K2ᵀ and D1 (f32 and bf16
-messages) at the slice shape for bit equality, reads the device
-kernels of one call of each from the profiler (K1 and D1: share pass
-and carry pass; K1 ``packed`` also its pack pass; K2: row pass and
-combine pass), and times them beside
-their plain versions and one-call yardsticks (on bf16 values too:
-``torch.sparse.mm`` of a bf16 CSR, or what the card's torch raised);
-K2 also in three L2
-states (warm with its output block reused, warm with every output kept
-alive, flushed), and every kernel inside its path's training step
-(device µs per launch, from the step profile).  The build prints each
-kernel's registers and spills (``-Xptxas=-v``), and each share-pass
-instance that runs at the slice's width its registers, local memory
-and resident blocks per SM as the card's runtime reports them.
+messages) at the slice shape for bit equality, and checks from the
+profiler that one call of K1, K1ᵀ, D1 (share pass and carry pass), K2
+and K2ᵀ (row pass and combine pass) runs exactly two device kernels.
+The build prints each kernel's registers and spills (``-Xptxas=-v``).
 
-Prints the card's name and power limit, the build, check and timing
-lines, then a ``{"kernels": [...]}`` line (K1, K1ᵀ, D2, D1, K2, K2ᵀ,
-and K7a and K7b from the parallel phase) and, last,
-``{"ok": true, "device": {...}}``.  Exits non-zero without a result
-when there is no CUDA device or any check fails.  Imports nothing of
-JAX or of the JAX package.
+Prints the card's name and power limit, the build and check lines, the
+launches by path and, last, ``{"ok": true, "device": {...}}``.  Exits
+non-zero without a result when there is no CUDA device or any check
+fails.  Imports nothing of JAX or of the JAX package.  The port's
+times on the card are ``portbench``'s (``BENCHMARK.json``).
 """
 
 from __future__ import annotations
@@ -186,13 +175,13 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
-import warnings
 
 import numpy as np
 import torch
@@ -204,7 +193,6 @@ EMBEDDING_SIZE = 64
 PROPAGATIONS = {"LightGCN": 1, "XSimGCL": 1, "SimGCL": 3}
 BATCHES = (1, 8, 64, 1024)
 TOP_K = 10
-TIMED_STEPS = 10           # the separately timed sample of training steps
 # the depth cut to keep the whole script near half its 1,200 s limit,
 # each logged with its reason when main starts (no check is cut)
 # training steps of the paths whose epoch is cut (the launch counts and
@@ -223,15 +211,14 @@ DEPTH_CUTS = (
     "LightGCN on ell trains 1 epoch, not 2: the loss's fall is held on a "
     "fixed batch (initial against trained params) on every LightGCN-"
     "family path instead",
-    f"{TIMED_STEPS} timed steps per path, not 25",
     "SessionServer latency from 50 requests per batch size (20 at "
     "B = 256), not 100 (40)",
     f"pallas, xla, SimGCL and XSimGCL train {FAMILY_TRAIN_STEPS} steps, "
     "not the epoch's 415 (LightGCN on ell, the main path, keeps its "
     "epoch); the loss's fall on the fixed batch is held as before",
     f"the general family but HMLET trains {GENERAL_TRAIN_STEPS} steps per "
-    "epoch, not 415 (DirectAU 3,314 of 256): every count, step check, "
-    "timing and evaluation as before",
+    "epoch, not 415 (DirectAU 3,314 of 256): every count, step check "
+    "and evaluation as before",
     "TAGNN and LESSR train " + " and ".join(
         map(str, SESSION_TRAIN_STEPS.values())) + " steps, not the epoch's "
     "89 (TAGNN's took 15.3 s, LESSR's 8.3 s); the CE's fall on the fixed "
@@ -244,7 +231,6 @@ DEPTH_CUTS = (
     "and LESSR's steps dominated the phase)")
 SOURCES = ("segment_spmm", "row_gather", "segment_sum", "ell_spmm")
 K1_MODES = ("bf16", "packed")   # K1's precisions besides f32x2
-D1_MODES = ("f32", "bf16", "hilo", "stream")
 CHUNK = 100_003            # the forced xla chunk: boundaries inside rows
 
 # |kernel − plain| ≤ TOL_REL_ABSSUM · Σ_e |term_e| elementwise: both sum
@@ -264,7 +250,7 @@ BF16_TOL_REL = 2.0 ** -7
 
 # K1's and D1's share sizes checked on the small edge cases (None: each
 # module's SHARE_EDGES, through the public wrapper, the only size
-# checked and timed at the slice shape and on the large cases)
+# checked at the slice shape and on the large cases)
 SHARE_CHECKED = (1, None)
 SMALL_CASE_EDGES = 1_000_000
 
@@ -386,8 +372,7 @@ def read_steps(path: str = "fit/epoch/step") -> dict:
     from a captured CUDA graph, the ``captures``, and ``issued``: the
     steps whose kernels went through the wrappers, so into the launch
     counters (the eager ones and each capture; a replay launches through
-    no wrapper, and what it runs is measured by the profiler in
-    ``time_train_steps``)."""
+    no wrapper)."""
     from recbole_gnn_tpu_torch.utils import trace
     out = {"steps": 0, "replayed": 0, "captures": 0}
     for spans in trace.snapshot().values():
@@ -414,120 +399,33 @@ def fit_steps(tag: str, want_steps: int) -> dict:
     return st
 
 
-# -- timing and bounds ------------------------------------------------------
+# -- device kernels per call ---------------------------------------------------
 
-def time_cuda_ms(fn) -> float:
-    from recbole_gnn_tpu_torch.diag.timing import time_ms
-    return time_ms(fn, torch.device("cuda"))
-
-
-def share_pass_usage_at(d: int) -> dict:
-    """What each share-pass instance that runs at width ``d`` uses (K1 in
-    every precision on f32 and bf16 x at their widest pieces; D1 with
-    the weight on f32 and bf16 messages, and f32 / bf16 / hilo without
-    it, at its lane width), from the card's runtime."""
-    from recbole_gnn_tpu_torch.ops import cuda_build
-    from recbole_gnn_tpu_torch.ops import segment_spmm as k1
-    from recbole_gnn_tpu_torch.ops import segment_sum as d1
-    out = {}
-    for p in k1.PRECISIONS:
-        for dt in (torch.float32, torch.bfloat16):
-            vec = cuda_build.vec_width(torch.empty((1, d), dtype=dt))
-            out[f"K1 {p} {str(dt)[6:]} x"] = k1.share_pass_usage(p, dt, vec, d)
-    for mode, weighted, dt in (("f32", True, torch.float32),
-                               ("f32", True, torch.bfloat16),
-                               ("f32", False, torch.float32),
-                               ("bf16", False, torch.float32),
-                               ("hilo", False, torch.float32)):
-        vec = d1._lane_width(d, torch.empty((1, d), dtype=dt))
-        out[f"D1 {mode}{' weighted' if weighted else ''} {str(dt)[6:]} "
-            f"messages"] = d1.share_pass_usage(mode, weighted, dt, vec, d)
-    return out
-
-
-def library_call(fn) -> dict:
-    """A one-call yardstick's time (``ms``), or, where the card's torch
-    refuses the call (bf16 values in a sparse product, say), ``ms``
-    None and what it raised (``error``)."""
-    try:
-        fn()
-    except (RuntimeError, NotImplementedError, TypeError) as exc:
-        return {"ms": None, "error": f"{type(exc).__name__}: {exc}"[:300]}
-    return {"ms": time_cuda_ms(fn), "error": None}
-
-
-def device_us_by_kernel(fn, reps: int = 20, kernels: int = 2,
-                        sessions: int = 4) -> dict:
-    """Device µs per call of ``fn`` by kernel name (``torch.profiler``,
-    ``reps`` calls after one warm-up, the L2 left warm): each kernel's
-    time over the records the profiler kept of it (in a long process it
-    drops some, at times all of a kernel's; each call runs each of its
-    kernels once).  A session that records fewer than ``kernels`` names
-    is run again, up to ``sessions`` in all; empty where the profiler
-    records no device activity."""
-    from recbole_gnn_tpu_torch.diag.timing import kernel_records
+def device_kernels(fn) -> list[str]:
+    """The device kernels a call of ``fn`` runs, by base name (no
+    namespace, template or arguments), from ``torch.profiler`` over 20
+    calls after one warm-up.  In a long process the profiler drops some
+    records, at times all of a kernel's: a session that records fewer
+    than 2 names is run again, up to 4 sessions in all."""
+    cuda = torch.autograd.DeviceType.CUDA
     fn()
     torch.cuda.synchronize()
-    for attempt in range(sessions):
+    for attempt in range(4):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(20):
                 fn()
             torch.cuda.synchronize()
-        total, records = kernel_records(prof)
-        for name, n in records.items():
-            if n != reps:
-                log(f"profiler: {n} records of {name} for {reps} calls")
-        if len(total) >= kernels:
+        names = set()
+        for evt in prof.key_averages():
+            if evt.device_type == cuda and evt.self_device_time_total:
+                m = re.search(r"(\w+)(?:<[^>]*>)?\(", evt.key)
+                names.add(m.group(1) if m else evt.key[:40])
+        if len(names) >= 2:
             break
-        log(f"profiler: session {attempt + 1} recorded {sorted(total)}; "
-            f"{kernels} kernels expected")
-    return {name: us / records[name] for name, us in total.items()}
-
-
-def spmm_bytes(n_out: int, n_in: int, e: int, n_ptr: int,
-               d: int, x_bytes: int = 4, out_bytes: int = 4
-               ) -> tuple[int, int]:
-    """(bytes, flops) of one SpMM: x read once, out written once (of
-    ``x_bytes`` and ``out_bytes`` per element: 2 for bf16), the int32
-    gather index, the f32 weight and the int64 row pointer read once;
-    2·E·d flops."""
-    return (n_in * d * x_bytes + n_out * d * out_bytes + e * 4 + e * 4
-            + n_ptr * 8, 2 * e * d)
-
-
-def ell_bytes(meta, n_in: int, d: int, padded: bool = False,
-              x_bytes: int = 4) -> tuple[int, int]:
-    """(bytes, flops) of one K2 call over the layout ``meta``: x read
-    once, out written once (``x_bytes`` per element each: 2 for bf16),
-    each real slot's int32 index and f32 weight (the pads add nothing:
-    what these inputs need), the per-virtual-row plan (int32) and the
-    rest lists (3 × int32), the split nodes' f32 workspace rows written
-    and read once; 2·E·d flops over the E real edges.  With ``padded``,
-    every slot's index and weight and 2·E_pad·d flops, as the bound was
-    counted before."""
-    slots = meta.e_padded if padded else int(meta.vlen.sum())
-    return (n_in * d * x_bytes + meta.n_nodes * d * x_bytes + slots * 8
-            + meta.n_vrows * 4 + meta.rest_node.numel() * 12
-            + 2 * meta.n_multi_vrows * d * 4,
-            2 * slots * d)
-
-
-def sorted_csr(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
-               n_rows: int, n_cols: int) -> torch.Tensor:
-    """CSR of real edges with the columns sorted in each row
-    (cuSPARSE's invariants) — the ``torch.sparse.mm`` yardstick, which
-    the port never calls."""
-    key = rows.long() * n_cols + cols.long()
-    order = torch.argsort(key)
-    counts = torch.bincount(rows.long(), minlength=n_rows)
-    rowptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=rows.device)
-    rowptr[1:] = torch.cumsum(counts, 0)
-    warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
-    warnings.filterwarnings("ignore", message="Sparse invariant checks")
-    return torch.sparse_csr_tensor(rowptr, cols.long()[order], w[order],
-                                   size=(n_rows, n_cols),
-                                   check_invariants=True)
+        log(f"profiler: session {attempt + 1} recorded {sorted(names)}; "
+            "2 kernels expected")
+    return sorted(names)
 
 
 # -- kernel vs plain ------------------------------------------------------
@@ -1210,95 +1108,6 @@ def check_metrics(name: str, result: dict):
         raise AssertionError(f"{name} metrics missing or not finite: {result}")
 
 
-# each wrapper's device kernels by name, on the path of each impl (K1's
-# and D1's passes share names, but no path runs both)
-STEP_KERNELS = {
-    "session": {},
-    "ell": {"ell_spmm": ("ell_row_kernel", "ell_combine_kernel")},
-    "pallas": {"segment_spmm": ("share_sum_kernel", "carry_sum_kernel")},
-    "xla": {"row_gather": ("row_gather_kernel",),
-            "block_segment_sum": ("share_sum_kernel", "carry_sum_kernel",
-                                  "block_stream_kernel")}}
-
-
-def time_train_steps(trainer, model, state: dict, host_batches: list,
-                     dev, impl: str, mode: int = 0
-                     ) -> tuple[list[float], dict]:
-    """Host-clock times (ms) of the training steps on ``host_batches``
-    after 5 warm-up steps, each synchronised, from the trained
-    checkpoint ``state``; a step is what ``fit`` does per batch: the
-    batch to the device, loss, backward, Adam update.  Then 10 more
-    steps under ``torch.profiler``: device time by kernel name, the
-    device's busy share of their wall time and, per kernel wrapper of
-    the impl, its device µs per launch in the step (the sum over its
-    kernels of each one's time over its records: a launch runs each of
-    them once; a transpose launches through its forward wrapper), beside
-    the launches its counter took in the window and the steps of the
-    window replayed from a CUDA graph (a replay launches through no
-    wrapper: its kernels are in the profiler's records alone); empty
-    where the profiler records no device activity."""
-    from recbole_gnn_tpu_torch.diag.timing import kernel_records
-    from recbole_gnn_tpu_torch.eval.evaluator import to_device
-    from recbole_gnn_tpu_torch.train.checkpoint import params_from_numpy
-    from recbole_gnn_tpu_torch.train.optim import tree_leaves
-    params = params_from_numpy(state["params"], dev)
-    for p in tree_leaves(params):
-        p.requires_grad_(True)
-    opt_state = params_from_numpy(state["opt_state"], dev)
-    extras = params_from_numpy(state.get("extras") or {}, dev)
-    rng = torch.Generator().manual_seed(SEED)
-
-    def step(b):
-        trainer.train_step(params, opt_state, model.consts, extras,
-                           to_device(b, dev), rng, mode)
-
-    times = []
-    for b in host_batches[:5 + TIMED_STEPS]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(b)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    window = host_batches[5 + TIMED_STEPS:]
-    wrappers = counters()
-    before = {k: wrappers[k].launches for k in STEP_KERNELS[impl]}
-    replayed = read_steps("step")["replayed"]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for b in window:
-            step(b)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    launches = {k: wrappers[k].launches - n for k, n in before.items()}
-    replayed = read_steps("step")["replayed"] - replayed
-    device_us, records = kernel_records(prof)
-    profile = {}
-    if device_us:
-        busy = sum(device_us.values())
-        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
-        profile = {"steps": len(window),
-                   "wall_ms_per_step": wall_us / len(window) / 1e3,
-                   "device_ms_per_step": busy / len(window) / 1e3,
-                   "device_busy_share": busy / wall_us,
-                   "top_ms_per_step": {k: v / len(window) / 1e3
-                                       for k, v in top},
-                   "replayed_steps": replayed,
-                   "launches_per_step": {k: n / len(window)
-                                         for k, n in launches.items()},
-                   "records_per_step": {
-                       n: records.get(n, 0) / len(window)
-                       for names in STEP_KERNELS[impl].values()
-                       for n in names},
-                   "in_step_us_per_launch": {
-                       k: sum(device_us[n] / records[n] for n in names
-                              if records.get(n))
-                       for k, names in STEP_KERNELS[impl].items()}}
-    return times[5:], profile
-
-
 def step_vs_plain(model, params: dict, batch: dict, impl: str) -> dict:
     """One training step's loss and embedding gradients on the kernels
     against the same step with every SpMM replaced by the plain version,
@@ -1358,8 +1167,9 @@ def step_vs_plain(model, params: dict, batch: dict, impl: str) -> dict:
 def train_path(tmp: str, impl: str, dev, model_name: str = "LightGCN"
                ) -> dict:
     """Train through ``run_recbole_gnn_tpu`` with every counter set to 0
-    just before and read just after; check the run; time its steps and
-    an evaluation; for LightGCN, one step against the plain version."""
+    just before and read just after; check the run and a re-evaluation
+    of its checkpoint; for LightGCN, one step against the plain
+    version."""
     from recbole_gnn_tpu_torch.config import Config
     from recbole_gnn_tpu_torch.eval.evaluator import to_device
     from recbole_gnn_tpu_torch.models import get_model
@@ -1443,16 +1253,6 @@ def train_path(tmp: str, impl: str, dev, model_name: str = "LightGCN"
             and fixed_loss[1] < fixed_loss[0]):
         raise AssertionError(f"[{tag}] the loss did not fall: {fixed_loss}")
     trainer = Trainer(config, model)
-    it = iter(train_loader)
-    host_batches = [next(it) for _ in range(5 + TIMED_STEPS + 10)]
-    step_ms, prof = time_train_steps(trainer, model, state, host_batches, dev,
-                                     impl)
-    log(f"[{tag}] train step (host clock, synchronised, {TIMED_STEPS} "
-        f"steps after 5 warm-up): median {np.median(step_ms):.3f} ms, min "
-        f"{min(step_ms):.3f}, max {max(step_ms):.3f}")
-    log(f"[{tag}] train step profile (torch.profiler, 10 steps): "
-        + (json.dumps(prof) if prof else "not measured (no device "
-           "activity recorded)"))
     params = params_from_numpy(state["params"], dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1474,8 +1274,7 @@ def train_path(tmp: str, impl: str, dev, model_name: str = "LightGCN"
         log(f"[{tag}] step vs plain: " + ", ".join(
             f"{k} {v:.6e}" for k, v in step_err.items()))
     return {"config": config, "ckpt": ckpt, "model": model, "graph": graph,
-            "params": params, "steps": steps, "counts": counts,
-            "profile": prof}
+            "params": params, "counts": counts}
 
 
 def serve_path(run: dict, tmp: str, impl: str, dev,
@@ -1791,7 +1590,7 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
                  label: str | None = None) -> dict:
     """Train ``model_name`` through ``run_recbole_gnn_tpu`` on ``ell``
     with every counter set to 0 just before and read just after; check
-    the run and its launch counts; time its steps and an evaluation;
+    the run, its launch counts and a re-evaluation of its checkpoint;
     for a graph model one step on the kernels against the plain one.
     ``over``: config overrides, the run named ``label`` (its own
     checkpoint directory); ``activation_dtype: bfloat16`` holds the step
@@ -1892,19 +1691,7 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
     state = load_checkpoint(ckpt)
     mode = int(model.loss_mode(epochs - 1))
     trainer = Trainer(config, model)
-    it = iter(train_loader)
-    host_batches = [next(it) for _ in range(5 + TIMED_STEPS + 10)]
     lap(f"[{tag}] checks of the run")
-    step_ms, prof = time_train_steps(trainer, model, state, host_batches,
-                                     dev, "ell", mode)
-    lap(f"[{tag}] timed and profiled steps")
-    log(f"[{tag}] train step (host clock, synchronised, {TIMED_STEPS} steps "
-        f"after 5 warm-up, loss mode {mode}): median "
-        f"{np.median(step_ms):.3f} ms, min {min(step_ms):.3f}, max "
-        f"{max(step_ms):.3f}")
-    log(f"[{tag}] train step profile (torch.profiler, 10 steps): "
-        + (json.dumps(prof) if prof else "not measured (no device "
-           "activity recorded)"))
     params = params_from_numpy(state["params"], dev)
     extras = params_from_numpy(state.get("extras") or {}, dev)
     torch.cuda.synchronize()
@@ -1929,9 +1716,6 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
                "epoch_s": [e["seconds"] for e in epoch_events],
                "examples_per_s": [e["examples_per_s"] for e in epoch_events],
                "losses": losses, "run_s": wall,
-               "step_median_ms": float(np.median(step_ms)),
-               "device_ms_per_step": prof.get("device_ms_per_step"),
-               "device_busy_share": prof.get("device_busy_share"),
                "peak_bytes": peak_bytes,
                "run_peak_bytes": peak_bytes - held_bytes, "eval_s": eval_s,
                "valid_recall@10": [e["recall@10"] for e in valids],
@@ -1939,8 +1723,7 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
                "step_vs_plain": step_err}
     return {"config": config, "ckpt": ckpt,
             "graph": model.consts.get("graph"), "params": params,
-            "extras": extras, "counts": counts, "profile": prof,
-            "summary": summary}
+            "extras": extras, "counts": counts, "summary": summary}
 
 
 def general_extra_steps(tmp: str, runs: dict, dev) -> dict:
@@ -2077,8 +1860,7 @@ def general_main(tmp: str, out_path: str) -> int:
     """The general-models phase (a child process of :func:`main`, on
     the data ``main`` wrote in ``tmp``): each model's path, SGL's
     serving, NeuMF's refused export and the other impls' step checks;
-    writes the launch counts and step profiles by path to
-    ``out_path``."""
+    writes the launch counts by path to ``out_path``."""
     from recbole_gnn_tpu_torch.ops import cuda_build
     from recbole_gnn_tpu_torch.serve import export_artifact
     if not torch.cuda.is_available():
@@ -2088,7 +1870,7 @@ def general_main(tmp: str, out_path: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     cuda_build.build(SOURCES)              # built by main: loads only
-    paths, profiles, general = {}, {}, {}
+    paths, general = {}, {}
     lap = lap_timer()
     for model_name in GENERAL_MODELS:
         with (capped_train_steps(GENERAL_TRAIN_STEPS)
@@ -2096,7 +1878,6 @@ def general_main(tmp: str, out_path: str) -> int:
               else contextlib.nullcontext()):
             run = general_path(tmp, model_name, dev)
         paths[f"{model_name.lower()}_train"] = run["counts"]
-        profiles[model_name] = run["profile"]
         general[model_name] = run
         lap(f"[{model_name} ell] path")
     paths["sgl_serve"] = serve_path(general["SGL"], tmp, "ell", dev)
@@ -2117,7 +1898,7 @@ def general_main(tmp: str, out_path: str) -> int:
         m: r["summary"] for m, r in general.items()},
         "general_step_vs_plain_other_impls": general_steps}))
     with open(out_path, "w") as f:
-        json.dump({"paths": paths, "profiles": profiles}, f)
+        json.dump({"paths": paths}, f)
     return 0
 
 
@@ -2332,9 +2113,9 @@ def session_path(tmp: str, model_name: str, dev) -> dict:
     with every counter set to 0 just before and read just after (the
     dense session path launches no kernel of the port); check the run,
     the fall of the loss over the epoch (the CE of a fixed batch from the
-    initial params and from the trained checkpoint), the metrics, one
-    step on the card against the CPU; time its steps and an
-    evaluation."""
+    initial params and from the trained checkpoint), the metrics, a
+    re-evaluation of its checkpoint, one step on the card against the
+    CPU."""
     from recbole_gnn_tpu_torch.config import Config
     from recbole_gnn_tpu_torch.eval.evaluator import to_device
     from recbole_gnn_tpu_torch.models import get_model
@@ -2421,16 +2202,6 @@ def session_path(tmp: str, model_name: str, dev) -> dict:
     if not (all(map(math.isfinite, ce)) and ce[1] < ce[0]):
         raise AssertionError(f"[{tag}] the loss did not fall: {ce}")
     trainer = Trainer(config, model)
-    it = iter(train_loader)
-    host_batches = [next(it) for _ in range(5 + TIMED_STEPS + 10)]
-    step_ms, prof = time_train_steps(trainer, model, state, host_batches,
-                                     dev, "session")
-    log(f"[{tag}] train step (host clock, synchronised, {TIMED_STEPS} steps "
-        f"after 5 warm-up): median {np.median(step_ms):.3f} ms, min "
-        f"{min(step_ms):.3f}, max {max(step_ms):.3f}")
-    log(f"[{tag}] train step profile (torch.profiler, 10 steps): "
-        + (json.dumps(prof) if prof else "not measured (no device "
-           "activity recorded)"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = trainer.evaluator.evaluate(params, extras, valid_loader)
@@ -2454,10 +2225,6 @@ def session_path(tmp: str, model_name: str, dev) -> dict:
                "epoch_s": [e["seconds"] for e in epoch_events],
                "sessions_per_s": [e["examples_per_s"] for e in epoch_events],
                "losses": losses, "ce_fixed_batch": ce, "run_s": wall,
-               "step_median_ms": float(np.median(step_ms)),
-               "device_ms_per_step": prof.get("device_ms_per_step"),
-               "device_busy_share": prof.get("device_busy_share"),
-               "top_ms_per_step": prof.get("top_ms_per_step"),
                "peak_bytes": peak_bytes, "eval_s": eval_s, "data_s": data_s,
                "valid": {k: v for k, v in valids[-1].items() if "@" in k},
                "test": res["test_result"], "card_vs_cpu": step_err}
@@ -2603,8 +2370,6 @@ def sparse_cell_on_kernels(run: dict, dev) -> tuple[dict, dict]:
     a_in, a_out = session_dense_adj(batch)
     dense = srgnn_cell_dense(cell, h, a_in, a_out)
     d_grads = grads_of(dense, h)
-    dense_ms = time_cuda_ms(lambda: srgnn_cell_dense(cell, hidden, a_in,
-                                                     a_out))
     paths, out = {}, {}
     for impl, want in (("ell", {"ell_spmm": 2, "ell_spmm_transpose": 2}),
                        ("pallas", {"segment_spmm": 2,
@@ -2633,16 +2398,11 @@ def sparse_cell_on_kernels(run: dict, dev) -> tuple[dict, dict]:
                 raise AssertionError(f"[srgnn_cell {impl}] gradient differs "
                                      f"from the dense cell's: {e:.3e}")
             g_err = max(g_err, e / float(dg.abs().max()))
-        with torch.no_grad():
-            ms = time_cuda_ms(lambda: srgnn_cell(
-                cell, hidden.reshape(B * L, D), in_g, out_g))
         out[impl] = {"max_abs_err": err, "grad_max_err_over_max": g_err,
-                     "forward_ms": ms, "edges": in_g.nnz, "nodes": B * L}
+                     "edges": in_g.nnz, "nodes": B * L}
         log(f"[srgnn_cell {impl}] one training batch's union graph "
             f"({B * L} nodes, {in_g.nnz} edges each way): launches {got}; "
-            f"max |sparse - dense| {err:.3e}, gradients {g_err:.3e} of max; "
-            f"forward {ms:.4f} ms (dense cell {dense_ms:.4f} ms)")
-    out["dense_forward_ms"] = dense_ms
+            f"max |sparse - dense| {err:.3e}, gradients {g_err:.3e} of max")
     return paths, out
 
 
@@ -2780,15 +2540,6 @@ def social_model(tmp: str, model_name: str, dev, impl: str = "ell",
     return config, splits, get_model(model_name)(config, splits[0][1], dev)
 
 
-def cycled_batches(loader, n: int) -> list:
-    """``n`` host batches, the loader's epochs one after another (an
-    epoch at this shape has fewer steps than the timing takes)."""
-    out = []
-    while len(out) < n:
-        out.extend(iter(loader))
-    return out[:n]
-
-
 def social_counts(impl: str, model_name: str, steps: int,
                   n_evals: int) -> dict:
     """Per step (of those whose kernels went through the wrappers)
@@ -2810,8 +2561,8 @@ def social_counts(impl: str, model_name: str, steps: int,
 def social_path(tmp: str, model_name: str, dev, impl: str = "ell") -> dict:
     """Train ``model_name`` through ``run_recbole_gnn_tpu`` on ``impl``
     with every counter set to 0 just before and read just after; check
-    the run, its launch counts and its layout-argument builds; time its
-    steps and an evaluation."""
+    the run, its launch counts, its layout-argument builds and a
+    re-evaluation of its checkpoint."""
     from recbole_gnn_tpu_torch.ops.ell_spmm import _layout_args
     from recbole_gnn_tpu_torch.quick_start import run_recbole_gnn_tpu
     from recbole_gnn_tpu_torch.train.checkpoint import (load_checkpoint,
@@ -2890,16 +2641,6 @@ def social_path(tmp: str, model_name: str, dev, impl: str = "ell") -> dict:
     state = load_checkpoint(ckpt)
     mode = int(model.loss_mode(epochs - 1))
     trainer = Trainer(config, model)
-    host_batches = cycled_batches(train_loader, 5 + TIMED_STEPS + 10)
-    step_ms, prof = time_train_steps(trainer, model, state, host_batches,
-                                     dev, impl, mode)
-    log(f"[{tag}] train step (host clock, synchronised, {TIMED_STEPS} steps "
-        f"after 5 warm-up, loss mode {mode}): median "
-        f"{np.median(step_ms):.3f} ms, min {min(step_ms):.3f}, max "
-        f"{max(step_ms):.3f}")
-    log(f"[{tag}] train step profile (torch.profiler, 10 steps): "
-        + (json.dumps(prof) if prof else "not measured (no device "
-           "activity recorded)"))
     params = params_from_numpy(state["params"], dev)
     extras = params_from_numpy(state.get("extras") or {}, dev)
     torch.cuda.synchronize()
@@ -2914,18 +2655,13 @@ def social_path(tmp: str, model_name: str, dev, impl: str = "ell") -> dict:
                "epoch_s": [e["seconds"] for e in epoch_events],
                "examples_per_s": [e["examples_per_s"] for e in epoch_events],
                "losses": losses, "run_s": wall, "loss_mode": mode,
-               "step_median_ms": float(np.median(step_ms)),
-               "device_ms_per_step": prof.get("device_ms_per_step"),
-               "device_busy_share": prof.get("device_busy_share"),
-               "top_ms_per_step": prof.get("top_ms_per_step"),
-               "in_step_us_per_launch": prof.get("in_step_us_per_launch"),
                "peak_bytes": peak_bytes, "eval_s": eval_s,
                "valid_recall@10": [e["recall@10"] for e in valids],
                "test": res["test_result"], "layout_builds": layout_builds}
     return {"config": config, "ckpt": ckpt, "model": model,
             "params": params, "extras": extras, "mode": mode,
             "train_loader": train_loader, "counts": counts,
-            "profile": prof, "summary": summary}
+            "summary": summary}
 
 
 def social_steps(tmp: str, run: dict, model_name: str, dev) -> dict:
@@ -3123,7 +2859,7 @@ PARALLEL_MESH = {"dp": 2, "tp": 2}
 PARALLEL_RANKS = 4                 # gloo ranks that share the one card
 PARALLEL_SHARDS = 4                # edge shards run in one process
 PARALLEL_STEPS = 10                # steps of each gloo-rank fit
-# K7b timed alone: a validation batch's users and history width
+# K7b alone: a validation batch's users and history width
 PARALLEL_TOPK_USERS = 4096
 PARALLEL_TOPK_HISTORY = 64
 # the gloo ranks' fit against the single-process fit, both on the card
@@ -3189,12 +2925,8 @@ def parallel_shards(graph, dev) -> dict:
     """(iii) Every shard of the edge-sharded K2/K2ᵀ in this process at
     the slice shape: the shards' forward blocks against unsharded K2,
     the sum of their transpose shares against unsharded K2ᵀ, within
-    TOL_REL_ABSSUM; each shard's edges, K2 / K2ᵀ ms, plain ms, bound
-    (the rows it gathers read once, its output block written once) and
-    library yardstick (``torch.sparse.mm`` of the shard's CSR, which
-    the port never calls)."""
-    from recbole_gnn_tpu_torch.diag.timing import bound_ms
-    from recbole_gnn_tpu_torch.ops.ell_spmm import (ell_spmm, ell_spmm_plain,
+    TOL_REL_ABSSUM; each shard's edges."""
+    from recbole_gnn_tpu_torch.ops.ell_spmm import (ell_spmm,
                                                     ell_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
     from recbole_gnn_tpu_torch.parallel.sharded_spmm import (
@@ -3227,37 +2959,10 @@ def parallel_shards(graph, dev) -> dict:
                        spmm_coo(graph.rev_src, graph.rev_dst,
                                 graph.rev_weight.abs(), cot.abs(),
                                 graph.n_src_nodes))
-        per = []
-        for i, sh in enumerate(shards):
-            g_blk = full[i * blk:(i + 1) * blk]
-            m = (dst >= i * blk) & (dst < (i + 1) * blk)
-            fwd_b = ell_bytes(sh.fwd, len(np.unique(src[m])), EMBEDDING_SIZE)
-            rev_b = ell_bytes(sh.rev, len(np.unique(dst[m])), EMBEDDING_SIZE)
-            rows = min((i + 1) * blk, n) - i * blk
-            rel = torch.from_numpy(dst[m] - i * blk).to(dev)
-            cols = torch.from_numpy(src[m]).to(dev)
-            wm = graph.weight[:nnz][torch.from_numpy(m).to(dev)]
-            csr = sorted_csr(rel, cols, wm, rows, n)
-            csr_t = sorted_csr(cols, rel, wm, n, rows)
-            per.append({
-                "library_ms": time_cuda_ms(
-                    lambda c=csr: torch.sparse.mm(c, x)),
-                "library_t_ms": time_cuda_ms(
-                    lambda c=csr_t, g=g_blk: torch.sparse.mm(c, g[:rows])),
-                "edges": sh.n_edges, "dst_rows": [i * blk,
-                                                  min((i + 1) * blk, n)],
-                "k2_ms": time_cuda_ms(lambda sh=sh: shard_forward(sh, x)),
-                "k2t_ms": time_cuda_ms(
-                    lambda sh=sh, g=g_blk: shard_transpose(sh, g)),
-                "plain_ms": time_cuda_ms(
-                    lambda sh=sh: ell_spmm_plain(sh.fwd, x)),
-                "plain_t_ms": time_cuda_ms(
-                    lambda sh=sh, g=g_blk: ell_spmm_plain(sh.rev, g)),
-                "bound_ms": bound_ms(*fwd_b), "bound_t_ms": bound_ms(*rev_b),
-                "split_nodes": sh.fwd.n_multi})
-        whole = {"k2_ms": time_cuda_ms(lambda: ell_spmm(graph.ell, x)),
-                 "k2t_ms": time_cuda_ms(
-                     lambda: ell_spmm_transpose(graph.rev_ell, cot))}
+        per = [{"edges": sh.n_edges,
+                "dst_rows": [i * blk, min((i + 1) * blk, n)],
+                "split_nodes": sh.fwd.n_multi}
+               for i, sh in enumerate(shards)]
     edges = [p["edges"] for p in per]
     if sum(edges) != nnz:
         raise AssertionError(f"the shards hold {sum(edges)} edges, the "
@@ -3267,20 +2972,10 @@ def parallel_shards(graph, dev) -> dict:
     imbalance = max(edges) / (sum(edges) / PARALLEL_SHARDS)
     log(f"[parallel shards] {PARALLEL_SHARDS} dst blocks of {blk} nodes "
         f"over {nnz} edges (host build {build_s:.2f} s): edges "
-        f"{edges}, imbalance (max/mean) {imbalance:.3f}; K2 ms per shard "
-        f"{[round(p['k2_ms'], 4) for p in per]} (unsharded "
-        f"{whole['k2_ms']:.4f}); K2T ms per shard "
-        f"{[round(p['k2t_ms'], 4) for p in per]} (unsharded "
-        f"{whole['k2t_ms']:.4f}); plain ms per shard "
-        f"{[round(p['plain_ms'], 4) for p in per]} / "
-        f"{[round(p['plain_t_ms'], 4) for p in per]}; bound ms per shard "
-        f"{[round(p['bound_ms'], 4) for p in per]} / "
-        f"{[round(p['bound_t_ms'], 4) for p in per]}; torch.sparse.mm ms "
-        f"per shard {[round(p['library_ms'], 4) for p in per]} / "
-        f"{[round(p['library_t_ms'], 4) for p in per]}; summed shards "
+        f"{edges}, imbalance (max/mean) {imbalance:.3f}; summed shards "
         "against unsharded K2 "
         f"max_abs_err {fwd_err:.3e}, K2T {rev_err:.3e}")
-    return {"shards": per, "unsharded": whole, "imbalance": imbalance,
+    return {"shards": per, "imbalance": imbalance,
             "max_abs_err": fwd_err, "max_abs_err_t": rev_err,
             "build_s": build_s, "counts": counts, "want": want}
 
@@ -3289,12 +2984,9 @@ def topk_alone(n_items: int, dev) -> dict:
     """K7b (``distributed_full_sort_topk``) alone, on a group of one, at
     the gloo ranks' validation shape: a batch of PARALLEL_TOPK_USERS
     users against a tp = 2 block of the catalog (⌈n_items / 2⌉ rows),
-    k = TOP_K, each user's PARALLEL_TOPK_HISTORY history ids masked; its
-    time, its plain form's (the masked (B, I) scores and one
-    ``torch.topk``) and its bound: U and the block read once, the (B, I)
-    f32 scores written once and read once by the top-k, the history read
-    once; 2·B·I·D f32 operations."""
-    from recbole_gnn_tpu_torch.diag.timing import bound_by, bound_ms
+    k = TOP_K, each user's PARALLEL_TOPK_HISTORY history ids masked;
+    its top-k values against its plain form's (the masked (B, I) scores
+    and one ``torch.topk``)."""
     from recbole_gnn_tpu_torch.parallel.topk import distributed_full_sort_topk
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     b, h, d = PARALLEL_TOPK_USERS, PARALLEL_TOPK_HISTORY, EMBEDDING_SIZE
@@ -3315,14 +3007,7 @@ def topk_alone(n_items: int, dev) -> dict:
                              "plain form's")
     same = got[0] == want.values  # equal infinities subtract to NaN
     err = float(torch.where(same, 0.0, (got[0] - want.values).abs()).max())
-    nb = (b * d + rows * d) * 4 + 2 * b * rows * 4 + b * h * 8 \
-        + b * TOP_K * 12
-    fl = 2 * b * rows * d
-    out = {"users": b, "item_rows": rows, "k": TOP_K, "max_abs_err": err,
-           "ms": time_cuda_ms(lambda: distributed_full_sort_topk(
-               u, items, hist, TOP_K, None)),
-           "plain_ms": time_cuda_ms(plain), "bytes": nb, "flops": fl,
-           "bound_ms": bound_ms(nb, fl), "bound_by": bound_by(nb, fl)}
+    out = {"users": b, "item_rows": rows, "k": TOP_K, "max_abs_err": err}
     log(f"[parallel K7b alone] {json.dumps(out)}")
     return out
 
@@ -3601,83 +3286,22 @@ def run_parallel_phase(tmp: str) -> dict:
 
 # -- main -------------------------------------------------------------------
 
-def k7a_entry(shards: dict, paths: dict) -> dict:
-    """K7a's line in the kernels list: the edge-sharded K2/K2ᵀ, all
-    PARALLEL_SHARDS shards run one after another on this card (ms, plain
-    ms, bound and ``torch.sparse.mm`` summed over the shards; forward,
-    and the transpose apart), its launches those of K2 and K2ᵀ on the
-    parallel paths that run sharded."""
-    per = shards["shards"]
-    total = {k: sum(p[k] for p in per) for k in (
-        "k2_ms", "k2t_ms", "plain_ms", "plain_t_ms", "bound_ms",
-        "bound_t_ms", "library_ms", "library_t_ms")}
-    sharded = ("parallel_shards", "parallel_nccl_train",
-               "parallel_gloo_train")
-    return {"name": "sharded_ell_spmm", "route": "cuda",
-            "source": "recbole_gnn_tpu_torch/csrc/ell_spmm.cu",
-            "replaces": "recbole_gnn_tpu/parallel/sharded_spmm.py:278",
-            "replaces_function": "sharded_ell_spmm (a shard_map "
-            "composition, no pallas_call)",
-            "launches": sum(paths[p]["ell_spmm"]
-                            + paths[p]["ell_spmm_transpose"]
-                            for p in sharded),
-            "launches_by_path": {p: paths[p]["ell_spmm"]
-                                 + paths[p]["ell_spmm_transpose"]
-                                 for p in sharded},
-            "max_abs_err": max(shards["max_abs_err"],
-                               shards["max_abs_err_t"]),
-            "ms": total["k2_ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": total["bound_ms"], "bound_by": "bytes",
-            "library_ms": total["library_ms"], "library": "torch.sparse.mm",
-            "transpose": {"ms": total["k2t_ms"],
-                          "plain_ms": total["plain_t_ms"],
-                          "bound_ms": total["bound_t_ms"],
-                          "library_ms": total["library_t_ms"]},
-            "shards": len(per), "imbalance": shards["imbalance"],
-            "per_shard": per}
-
-
-def k7b_entry(topk: dict, paths: dict) -> dict:
-    """K7b's line: the item-sharded full-sort top-k, a composition of
-    cuBLAS and ``torch.topk`` with no kernel of the repo's own, timed
-    alone on a group of one; its launches its calls in the gloo ranks'
-    validation."""
-    return {"name": "distributed_full_sort_topk", "route": "cuda",
-            "hand_written": False,
-            "source": "recbole_gnn_tpu_torch/parallel/topk.py",
-            "replaces": "recbole_gnn_tpu/parallel/topk.py:26",
-            "replaces_function": "distributed_full_sort_topk (a shard_map "
-            "composition, no pallas_call)",
-            "launches": paths["parallel_gloo_train"][
-                "distributed_full_sort_topk"],
-            "max_abs_err": topk["max_abs_err"],
-            "ms": topk["ms"], "plain_ms": topk["plain_ms"],
-            "bound_ms": topk["bound_ms"], "bound_by": topk["bound_by"],
-            "library_ms": None, "shape": {k: topk[k] for k in (
-                "users", "item_rows", "k")}}
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from recbole_gnn_tpu_torch.diag import ell_l2, pallas_floor
+    from recbole_gnn_tpu_torch.diag import pallas_floor
     from recbole_gnn_tpu_torch.diag import row_gather as d2
     from recbole_gnn_tpu_torch.diag.gowalla_shape import (
         GOWALLA_SHAPE, write_gowalla_shape)
-    from recbole_gnn_tpu_torch.diag.timing import (bound_by, bound_ms,
-                                                   host_us_per_call)
     from recbole_gnn_tpu_torch.ops import cuda_build
-    from recbole_gnn_tpu_torch.ops.ell_spmm import (
-        ell_spmm, ell_spmm_plain, ell_spmm_pad_free_plain, ell_spmm_transpose)
-    from recbole_gnn_tpu_torch.ops.gather import row_gather, row_gather_plain
+    from recbole_gnn_tpu_torch.ops.ell_spmm import ell_spmm, ell_spmm_transpose
+    from recbole_gnn_tpu_torch.ops.gather import row_gather
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
-        PRECISIONS, SHARE_EDGES, segment_spmm, segment_spmm_plain,
-        segment_spmm_transpose, spmm_coo)
+        PRECISIONS, SHARE_EDGES, segment_spmm, segment_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.segment_sum import (
-        SHARE_EDGES as D1_SHARE_EDGES, block_segment_sum,
-        block_segment_sum_plain)
-    from recbole_gnn_tpu_torch.ops.spmm import build_graph, xla_spmm
+        SHARE_EDGES as D1_SHARE_EDGES, block_segment_sum)
+    from recbole_gnn_tpu_torch.ops.spmm import build_graph
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 U·Iᵀ
     torch.backends.cudnn.allow_tf32 = False
@@ -3703,11 +3327,6 @@ def main() -> int:
     for name, text in build_log.items():
         for entry in cuda_build.ptxas_usage(text):
             log(f"  ptxas {name}: {json.dumps(entry)}")
-    # the share passes' instances at the slice's width: what the card's
-    # runtime reports (registers, local bytes, resident blocks per SM)
-    share_usage = share_pass_usage_at(EMBEDDING_SIZE)
-    for key, u in share_usage.items():
-        log(f"share pass {key} at D={EMBEDDING_SIZE}: {json.dumps(u)}")
 
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3738,13 +3357,10 @@ def main() -> int:
         paths["xla_serve"] = serve_path(xla, tmp, "xla", dev,
                                         batches=(1, 64))
         lap("[xla] serve path")
-        profiles = {"ell": ell["profile"], "pallas": pallas["profile"],
-                    "xla": xla["profile"]}
         for model_name in ("SimGCL", "XSimGCL"):
             with capped_train_steps(FAMILY_TRAIN_STEPS):
                 run = train_path(tmp, "ell", dev, model_name)
             paths[f"{model_name.lower()}_train"] = run["counts"]
-            profiles[model_name] = run["profile"]
             del run
             lap(f"[{model_name} ell] train path")
         reset_counts()
@@ -3756,9 +3372,7 @@ def main() -> int:
                         ("D2 row_gather", probe2)):
             log(f"probe {name} at the TPU probe's shape: "
                 f"{json.dumps(r)}")
-        graph, params, model = pallas["graph"], pallas["params"], \
-            pallas["model"]
-        steps = pallas["steps"]
+        graph, params = pallas["graph"], pallas["params"]
 
         # 5. every kernel against its plain version: the slice shape,
         # then the edge cases
@@ -3846,320 +3460,45 @@ def main() -> int:
             e2 = check_ell_cases(case_rng, dev)
             k2_err, k2_err_t = max(k2_err, e2[0]), max(k2_err_t, e2[1])
             lap("K2's non-finite and zero-weight cases")
+            log("max_abs_err against the plain versions (slice and edge "
+                "cases; K1, K1T at the slice): " + json.dumps(
+                    {"K1": max_err, "K1T": max_err_t, "K1 modes": mode_err,
+                     "K2": k2_err, "K2T": k2_err_t, **xla_err,
+                     "bf16x": bf16_err}))
 
-            # 6. times at the slice shape: K1 beside its plain version and
-            # the library call
-            nnz, n = graph.nnz, graph.n_nodes
-            kernel_ms = time_cuda_ms(lambda: segment_spmm(
-                graph.src, graph.dst, graph.weight, graph.rowptr, x))
-            split_us = device_us_by_kernel(lambda: segment_spmm(
-                graph.src, graph.dst, graph.weight, graph.rowptr, x))
-            split_t_us = device_us_by_kernel(lambda: segment_spmm_transpose(
-                graph.rev_src, graph.rev_dst, graph.rev_weight,
-                graph.rev_rowptr, cot))
-            # one call is the share pass and the carry pass
-            per_call, per_call_t = len(split_us), len(split_t_us)
-            if (per_call, per_call_t) != (2, 2):
-                raise AssertionError(
-                    f"the profiler saw {split_us} per K1 call and "
-                    f"{split_t_us} per K1T call; expected 2 device kernels")
-            plain_ms = time_cuda_ms(lambda: spmm_coo(
-                graph.src, graph.dst, graph.weight, x, n))
-            csr = sorted_csr(graph.dst[:nnz], graph.src[:nnz],
-                             graph.weight[:nnz], n, graph.n_src_nodes)
-            lib_err = float((torch.sparse.mm(csr, x) - spmm_coo(
-                graph.src, graph.dst, graph.weight, x, n)).abs().max())
-            library_ms = time_cuda_ms(lambda: torch.sparse.mm(csr, x))
-            kernel_t_ms = time_cuda_ms(lambda: segment_spmm_transpose(
-                graph.rev_src, graph.rev_dst, graph.rev_weight,
-                graph.rev_rowptr, cot))
-            plain_t_ms = time_cuda_ms(lambda: spmm_coo(
-                graph.rev_src, graph.rev_dst, graph.rev_weight, cot,
-                graph.n_src_nodes))
-            csr_t = sorted_csr(graph.src[:nnz], graph.dst[:nnz],
-                               graph.weight[:nnz], graph.n_src_nodes, n)
-            lib_err_t = float((torch.sparse.mm(csr_t, cot) - spmm_coo(
-                graph.rev_src, graph.rev_dst, graph.rev_weight, cot,
-                graph.n_src_nodes)).abs().max())
-            library_t_ms = time_cuda_ms(lambda: torch.sparse.mm(csr_t, cot))
-            # K1 in its other precisions, same graph and input, and K1T
-            # in them on the f32 cotangent (packed: the pack pass inside)
-            k1_modes = {p: {
-                "ms": time_cuda_ms(lambda p=p: segment_spmm(
-                    graph.src, graph.dst, graph.weight, graph.rowptr, x, p)),
-                "plain_ms": time_cuda_ms(lambda p=p: segment_spmm_plain(
-                    graph.src, graph.dst, graph.weight, x, n, p)),
-                "t_ms": time_cuda_ms(lambda p=p: segment_spmm_transpose(
-                    graph.rev_src, graph.rev_dst, graph.rev_weight,
-                    graph.rev_rowptr, cot, p)),
-                "t_plain_ms": time_cuda_ms(lambda p=p: segment_spmm_plain(
-                    graph.rev_src, graph.rev_dst, graph.rev_weight, cot,
-                    graph.n_src_nodes, p))}
-                for p in K1_MODES}
-            # K2 and K2T on the ell run's graph: beside the plain version,
-            # torch.sparse.mm of the same CSR and K1 on the same graph
-            # and input; device kernels per call from the profiler
-            e_nnz = eg.nnz
-            k2 = {}
-            for kind, meta, inp, run, lib, k1_run in (
-                    ("K2", eg.ell, xe, lambda: ell_spmm(eg.ell, xe),
-                     sorted_csr(eg.dst[:e_nnz], eg.src[:e_nnz],
-                                eg.weight[:e_nnz], eg.n_nodes,
-                                eg.n_src_nodes),
-                     lambda: segment_spmm(eg.src, eg.dst, eg.weight,
-                                          eg.rowptr, xe)),
-                    ("K2T", eg.rev_ell, cot,
-                     lambda: ell_spmm_transpose(eg.rev_ell, cot),
-                     sorted_csr(eg.src[:e_nnz], eg.dst[:e_nnz],
-                                eg.weight[:e_nnz], eg.n_src_nodes,
-                                eg.n_nodes),
-                     lambda: segment_spmm_transpose(
-                         eg.rev_src, eg.rev_dst, eg.rev_weight,
-                         eg.rev_rowptr, cot))):
-                us = device_us_by_kernel(run)
-                # the row pass, and the combine pass: the slice has split
-                # nodes (the hub) and isolated ones (PAD ids 0)
-                if len(us) != 2:
-                    raise AssertionError(f"the profiler saw {us} per {kind} "
-                                         "call; expected 2 device kernels")
-                nb, fl = ell_bytes(meta, inp.shape[0], EMBEDDING_SIZE)
-                nb_pad, fl_pad = ell_bytes(meta, inp.shape[0], EMBEDDING_SIZE,
-                                           padded=True)
-                want = ell_spmm_plain(meta, inp)
-                # the L2 states: warm with the output block reused, warm
-                # with every output kept alive, flushed before each call
-                states = {"warm_reused": ell_l2.warm_us(run, keep=False),
-                          "warm_fresh": ell_l2.warm_us(run, keep=True),
-                          "flushed": ell_l2.flushed(run, dev)}
-                k2[kind] = {
-                    "ms": states["flushed"]["call_ms"],
-                    "l2_states": states,
-                    "plain_ms": time_cuda_ms(
-                        lambda: ell_spmm_plain(meta, inp)),
-                    "pad_free_plain_ms": time_cuda_ms(
-                        lambda: ell_spmm_pad_free_plain(meta, inp)),
-                    "library_ms": time_cuda_ms(
-                        lambda: torch.sparse.mm(lib, inp)),
-                    "library_max_abs_err": float(
-                        (torch.sparse.mm(lib, inp) - want).abs().max()),
-                    "k1_ms": time_cuda_ms(k1_run),
-                    "device_us_by_kernel": us, "bytes": nb, "flops": fl,
-                    "bound_ms": bound_ms(nb, fl), "bound_by": bound_by(nb, fl),
-                    "bound_ms_padded": bound_ms(nb_pad, fl_pad),
-                    "real_slots": int(meta.vlen.sum()),
-                    "host_us_per_call": host_us_per_call(run, dev),
-                    "gathered_tb_per_s": None}
-                k2[kind]["gathered_tb_per_s"] = (
-                    k2[kind]["real_slots"] * EMBEDDING_SIZE * 4
-                    / k2[kind]["ms"] / 1e9)
-                del lib, want
-            # the xla SpMM whole (D2, then D1 with the weight)
-            xla_ms = time_cuda_ms(lambda: xla_spmm(
-                graph.src, graph.dst, graph.weight, graph.rowptr, x))
-            xla_t_ms = time_cuda_ms(lambda: xla_spmm(
-                graph.rev_src, graph.rev_dst, graph.rev_weight,
-                graph.rev_rowptr, cot))
-            del csr, csr_t
-
-            # D2 and D1 at the slice shape, as the xla forward calls them
-            d2_ms = time_cuda_ms(lambda: row_gather(x, graph.src))
-            d2_plain_ms = time_cuda_ms(lambda: row_gather_plain(x, graph.src))
-            d2_bytes, d2_flops = d2.work(x, graph.src)
-            # D1 as the xla path calls it (f32, the edge weight inside),
-            # its two device kernels, its plain version and two one-call
-            # yardsticks: index_add_ of pre-weighted messages, and
-            # torch.sparse.mm of the (n x E) CSR of the weights
-            w = graph.weight
-            d1_w = (raw, graph.dst, graph.rowptr, "f32")
-            d1_ms = time_cuda_ms(lambda: block_segment_sum(*d1_w, weight=w))
-            d1_plain_ms = time_cuda_ms(lambda: block_segment_sum_plain(
-                *d1_w, weight=w))
-            d1_us = device_us_by_kernel(lambda: block_segment_sum(
-                *d1_w, weight=w))
-            if len(d1_us) != 2:
-                raise AssertionError(f"the profiler saw {d1_us} per D1 call; "
-                                     "expected 2 device kernels")
-            # K1 packed's three device kernels (the pack pass, the share
-            # pass, the carry pass), after every other profile: a long
-            # process's later profiler sessions may keep fewer records
-            pack_us = {kind: device_us_by_kernel(fn, kernels=3) for kind, fn
-                       in (("K1", lambda: segment_spmm(
-                               graph.src, graph.dst, graph.weight,
-                               graph.rowptr, x, "packed")),
-                           ("K1T", lambda: segment_spmm_transpose(
-                               graph.rev_src, graph.rev_dst,
-                               graph.rev_weight, graph.rev_rowptr, cot,
-                               "packed")))}
-            # the host's time per wrapper call, which the event times
-            # leave out
-            raw_b = raw.to(torch.bfloat16)
-            host_us = {k: host_us_per_call(fn, dev) for k, fn in (
-                ("segment_spmm", lambda: segment_spmm(
-                    graph.src, graph.dst, graph.weight, graph.rowptr, x)),
-                ("segment_spmm_transpose", lambda: segment_spmm_transpose(
-                    graph.rev_src, graph.rev_dst, graph.rev_weight,
-                    graph.rev_rowptr, cot)),
-                ("row_gather", lambda: row_gather(x, graph.src)),
-                ("block_segment_sum", lambda: block_segment_sum(
-                    *d1_w, weight=w)),
-                ("xla_spmm", lambda: xla_spmm(
-                    graph.src, graph.dst, graph.weight, graph.rowptr, x)))
-                + tuple((f"segment_spmm {p}", lambda p=p: segment_spmm(
-                    graph.src, graph.dst, graph.weight, graph.rowptr, x, p))
-                        for p in K1_MODES)
-                + (("block_segment_sum bf16x", lambda: block_segment_sum(
-                    raw_b, graph.dst, graph.rowptr, "f32", weight=w)),)}
-            del raw_b
-            msgs = raw * w[:, None]
-            acc = torch.zeros(n, EMBEDDING_SIZE, device=dev)
-            d1_index_add_ms = time_cuda_ms(
-                lambda: acc.index_add_(0, graph.dst, msgs))
-            d1_csr = torch.sparse_csr_tensor(
-                graph.rowptr, torch.arange(raw.shape[0], device=dev), w,
-                size=(n, raw.shape[0]))
-            d1_lib_err = float((torch.sparse.mm(d1_csr, raw)
-                                - block_segment_sum_plain(*d1_w, weight=w))
-                               .abs().max())
-            d1_library_ms = time_cuda_ms(lambda: torch.sparse.mm(d1_csr, raw))
-            d1_bytes, d1_flops = pallas_floor.work(raw, graph.rowptr,
-                                                   weighted=True)
-            # each mode on the pre-weighted messages (the probe's input)
-            d1 = {}
-            for mode in D1_MODES:
-                d1[mode] = {
-                    "ms": time_cuda_ms(lambda: block_segment_sum(
-                        msgs, graph.dst, graph.rowptr, mode)),
-                    "plain_ms": time_cuda_ms(lambda: block_segment_sum_plain(
-                        msgs, graph.dst, graph.rowptr, mode))}
-            # the hub block alone: every other row's range made empty
-            deg = (graph.rowptr[1:] - graph.rowptr[:-1]).cpu().numpy()
-            tail = graph.n_edges_padded - nnz
-            real = deg.copy()
-            real[-1] -= tail
-            hub = int(np.argmax(real))
-            base = hub - hub % 64
-            lo, hi = graph.rowptr[base], graph.rowptr[min(base + 64, n)]
-            rp_hub = graph.rowptr.clamp(lo, hi)
-            hub_edges = int(hi - lo)
-            d1_hub_ms = time_cuda_ms(lambda: block_segment_sum(
-                raw, graph.dst, rp_hub, "f32", weight=w))
-            del msgs, acc, raw, d1_csr
-
-            # each kernel in its bf16-x mode at the slice shape, on bf16
-            # copies of the ell run's params and the cotangent: its time,
-            # its plain version's and its bound with 2-byte x and out
-            # (K1: f32 out)
-            xb, cb = xe.to(torch.bfloat16), cot.to(torch.bfloat16)
-            rawb = row_gather(xb, graph.src)
-            n_src, e_all = graph.n_src_nodes, graph.n_edges_padded
-            bf16_modes = {}
-
-            def bf16_mode(kernel, key, run, plain, work):
-                nb, fl = work
-                bf16_modes.setdefault(kernel, {})[key] = {
-                    "ms": time_cuda_ms(run), "plain_ms": time_cuda_ms(plain),
-                    "bound_ms": bound_ms(nb, fl),
-                    "bound_by": bound_by(nb, fl), "bytes": nb, "flops": fl}
-
-            for p in PRECISIONS:
-                bf16_mode("segment_spmm", f"bf16x_{p}",
-                          lambda p=p: segment_spmm(
-                              graph.src, graph.dst, graph.weight,
-                              graph.rowptr, xb, p),
-                          lambda p=p: segment_spmm_plain(
-                              graph.src, graph.dst, graph.weight, xb, n, p),
-                          spmm_bytes(n, n_src, e_all, n + 1, EMBEDDING_SIZE,
-                                     x_bytes=2))
-            bf16_mode("segment_spmm_transpose", "bf16x_f32x2",
-                      lambda: segment_spmm_transpose(
-                          graph.rev_src, graph.rev_dst, graph.rev_weight,
-                          graph.rev_rowptr, cb),
-                      lambda: segment_spmm_plain(
-                          graph.rev_src, graph.rev_dst, graph.rev_weight, cb,
-                          n_src),
-                      spmm_bytes(n_src, n, e_all, n_src + 1, EMBEDDING_SIZE,
-                                 x_bytes=2))
-            for kernel, meta, inp in (("ell_spmm", eg.ell, xb),
-                                      ("ell_spmm_transpose", eg.rev_ell, cb)):
-                bf16_mode(kernel, "bf16x",
-                          lambda meta=meta, inp=inp: ell_spmm(meta, inp),
-                          lambda meta=meta, inp=inp: ell_spmm_plain(meta, inp),
-                          ell_bytes(meta, inp.shape[0], EMBEDDING_SIZE,
-                                    x_bytes=2))
-            bf16_mode("row_gather", "bf16x",
-                      lambda: row_gather(xb, graph.src),
-                      lambda: row_gather_plain(xb, graph.src),
-                      d2.work(xb, graph.src))
-            bf16_mode("block_segment_sum", "bf16x_f32_weighted",
-                      lambda: block_segment_sum(rawb, graph.dst, graph.rowptr,
-                                                "f32", weight=w),
-                      lambda: block_segment_sum_plain(
-                          rawb, graph.dst, graph.rowptr, "f32", weight=w),
-                      pallas_floor.work(rawb, graph.rowptr, weighted=True))
-            for p in K1_MODES:
-                bf16_mode("segment_spmm_transpose", f"bf16x_{p}",
-                          lambda p=p: segment_spmm_transpose(
-                              graph.rev_src, graph.rev_dst, graph.rev_weight,
-                              graph.rev_rowptr, cb, p),
-                          lambda p=p: segment_spmm_plain(
-                              graph.rev_src, graph.rev_dst, graph.rev_weight,
-                              cb, n_src, p),
-                          spmm_bytes(n_src, n, e_all, n_src + 1,
-                                     EMBEDDING_SIZE, x_bytes=2))
-            # the one-call yardsticks on bf16 values: torch.sparse.mm of
-            # the bf16 CSR on the bf16 rows (K1, K1T, K2, K2T; D1: of the
-            # weights' CSR on the bf16 messages), index_select for D2
-            wb = w.to(torch.bfloat16)
-            e_w = eg.weight[:e_nnz].to(torch.bfloat16)
-            library_bf16 = {k: library_call(fn) for k, fn in (
-                ("segment_spmm", lambda c=sorted_csr(
-                    graph.dst[:nnz], graph.src[:nnz], wb[:nnz], n,
-                    n_src): torch.sparse.mm(c, xb)),
-                ("segment_spmm_transpose", lambda c=sorted_csr(
-                    graph.src[:nnz], graph.dst[:nnz], wb[:nnz], n_src,
-                    n): torch.sparse.mm(c, cb)),
-                ("ell_spmm", lambda c=sorted_csr(
-                    eg.dst[:e_nnz], eg.src[:e_nnz], e_w, eg.n_nodes,
-                    eg.n_src_nodes): torch.sparse.mm(c, xb)),
-                ("ell_spmm_transpose", lambda c=sorted_csr(
-                    eg.src[:e_nnz], eg.dst[:e_nnz], e_w, eg.n_src_nodes,
-                    eg.n_nodes): torch.sparse.mm(c, cb)),
-                ("block_segment_sum", lambda c=torch.sparse_csr_tensor(
-                    graph.rowptr, torch.arange(rawb.shape[0], device=dev),
-                    wb, size=(n, rawb.shape[0])): torch.sparse.mm(c, rawb)),
-                ("row_gather", lambda: xb.index_select(0, graph.src)))}
-            del xb, cb, rawb, wb, e_w
-
-            # K1 on the same n and nnz without the hub rows (uniform) and
-            # without the padding tail: what the row degrees cost it
-            rdeg = (graph.rev_rowptr[1:] - graph.rev_rowptr[:-1]).cpu().numpy()
-            rp_unpadded = torch.clamp(graph.rowptr, max=nnz)
-            unpadded_ms = time_cuda_ms(lambda: segment_spmm(
-                graph.src, graph.dst, graph.weight, rp_unpadded, x))
-            u = np.random.default_rng(SEED + 2)
-            flat = build_graph(u.integers(0, n, nnz), u.integers(0, n, nnz),
-                               np.ones(nnz, np.float32), n, device=dev,
-                               with_reverse=False)
-            uniform_ms = time_cuda_ms(lambda: segment_spmm(
-                flat.src, flat.dst, flat.weight, flat.rowptr, x))
-            times = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                model.propagate(params, model.consts, {})
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-        lap("timings at the slice shape")
+            # 6. one call of each two-pass kernel at the slice shape runs
+            # exactly its two device kernels: K1, K1T and D1 the share
+            # pass and the carry pass, K2 and K2T the row pass and the
+            # combine pass (the slice has split nodes, the hub, and
+            # isolated ones)
+            per_call = {}
+            for kind, fn in (
+                    ("K1", lambda: segment_spmm(
+                        graph.src, graph.dst, graph.weight, graph.rowptr,
+                        x)),
+                    ("K1T", lambda: segment_spmm_transpose(
+                        graph.rev_src, graph.rev_dst, graph.rev_weight,
+                        graph.rev_rowptr, cot)),
+                    ("K2", lambda: ell_spmm(eg.ell, xe)),
+                    ("K2T", lambda: ell_spmm_transpose(eg.rev_ell, cot)),
+                    ("D1", lambda: block_segment_sum(
+                        raw, graph.dst, graph.rowptr, "f32",
+                        weight=graph.weight))):
+                per_call[kind] = device_kernels(fn)
+                if len(per_call[kind]) != 2:
+                    raise AssertionError(
+                        f"the profiler saw {per_call[kind]} per {kind} "
+                        "call; expected 2 device kernels")
+            log("device kernels per call at the slice shape "
+                f"(torch.profiler): {json.dumps(per_call)}")
+        lap("device kernels per call")
 
         # 7. the general family on ell, each at its published settings,
-        # after every profiled kernel split above and in a process of
-        # its own: each torch.profiler session of a process leaves its
-        # later ones fewer device records
+        # in a process of its own
         log(f"main paths, probes and kernel checks: "
             f"{time.perf_counter() - t_main:.1f} s")
         general = run_general_phase(tmp)
         paths.update(general["paths"])
-        profiles.update(general["profiles"])
         # 8. the session family, in a process of its own
         session = run_session_phase(tmp)
         paths.update(session["paths"])
@@ -4169,278 +3508,8 @@ def main() -> int:
         # 10. the parallel paths, last, in a process of its own
         parallel = run_parallel_phase(tmp)
         paths.update(parallel["paths"])
-    log(f"slice degrees: max real {int(real.max())} (row {hub}, D1 block "
-        f"{hub // 64} holds {hub_edges} edges), padding tail {tail} on row "
-        f"{n - 1} (real degree {int(real[-1])}); transpose: max "
-        f"{int(rdeg.max())}, row 0 holds {int(rdeg[0])} (the padding), "
-        f"mean {nnz / n:.1f}")
-    log(f"segment_spmm diagnostics: without the padding tail "
-        f"{unpadded_ms:.4f} ms; uniform random graph of the same "
-        f"n and nnz {uniform_ms:.4f} ms (max degree "
-        f"{int((flat.rowptr[1:] - flat.rowptr[:-1]).max())}); "
-        f"LightGCN propagate ({N_LAYERS} layers, host clock) "
-        f"{np.median(times) * 1e3:.3f} ms")
-    e_pad = graph.n_edges_padded
-    n_bytes, flops = spmm_bytes(n, graph.n_src_nodes, e_pad, n + 1,
-                                EMBEDDING_SIZE)
-    n_bytes_t, flops_t = spmm_bytes(graph.n_src_nodes, n, e_pad,
-                                    graph.n_src_nodes + 1, EMBEDDING_SIZE)
-    bound, bound_t = bound_ms(n_bytes, flops), bound_ms(n_bytes_t, flops_t)
-    # the row gathers, served from L2 at this shape: the practical floor
-    gathered = e_pad * EMBEDDING_SIZE * 4
-    log("segment_spmm device us per call by kernel (torch.profiler, 20 "
-        f"calls, L2 warm): K1 {json.dumps(split_us)}; K1T "
-        f"{json.dumps(split_t_us)}")
-    log(f"segment_spmm (K1) at the slice shape (T={SHARE_EDGES}, {per_call} "
-        f"device kernels per call): kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms "
-        f"(max_abs_err vs plain {lib_err:.3e}), bound {bound:.4f} ms "
-        f"({n_bytes} bytes, {flops} flops); row gathers {gathered} bytes "
-        f"at {gathered / kernel_ms / 1e9:.3f} TB/s")
-    log(f"segment_spmm_transpose (K1T) at the slice shape: kernel "
-        f"{kernel_t_ms:.4f} ms, plain {plain_t_ms:.4f} ms, "
-        f"torch.sparse.mm {library_t_ms:.4f} ms (max_abs_err vs plain "
-        f"{lib_err_t:.3e}), bound {bound_t:.4f} ms ({n_bytes_t} "
-        f"bytes, {flops_t} flops); row gathers {gathered} bytes at "
-        f"{gathered / kernel_t_ms / 1e9:.3f} TB/s; {N_LAYERS} launches "
-        f"per step, {N_LAYERS * steps} per epoch")
-    log("segment_spmm (K1) precisions at the slice shape (packed: the "
-        "pack pass inside): " + "; ".join(
-            f"{p} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms, "
-            f"K1T kernel {r['t_ms']:.4f} ms plain {r['t_plain_ms']:.4f} ms, "
-            f"max_abs_err {mode_err[p]:.3e}" for p, r in k1_modes.items())
-        + f"; f32x2 kernel {kernel_ms:.4f} ms, K1T {kernel_t_ms:.4f} ms; "
-        "packed device us per call by kernel (torch.profiler, 20 calls, L2 "
-        f"warm): {json.dumps(pack_us)}")
-    el = eg.ell
-    log(f"ell layout at the slice shape: {eg.nnz} edges, e_pad "
-        f"{el.e_padded} ({el.e_padded / eg.nnz:.3f}x), {el.n_vrows} virtual "
-        f"rows, buckets K={list(el.ks)} rows={list(el.rows)}, "
-        f"{el.n_multi} split nodes ({el.n_multi_vrows} virtual rows); "
-        f"transpose e_pad {eg.rev_ell.e_padded}, K={list(eg.rev_ell.ks)}")
-    for kind, r in k2.items():
-        log(f"ell_spmm ({kind}) at the slice shape: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, torch.sparse.mm "
-            f"{r['library_ms']:.4f} ms (max_abs_err vs plain "
-            f"{r['library_max_abs_err']:.3e}), K1 on the same graph "
-            f"{r['k1_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bytes']} bytes, {r['flops']} flops; "
-            f"{r['bound_ms'] / r['ms']:.1%} of the bound), row gathers at "
-            f"{r['gathered_tb_per_s']:.3f} TB/s ({r['real_slots']} real "
-            f"slots), bound over every slot as before "
-            f"{r['bound_ms_padded']:.4f} ms, the pad-free plain version "
-            f"{r['pad_free_plain_ms']:.4f} ms, device us per call "
-            f"(torch.profiler, 20 calls, L2 warm) "
-            f"{json.dumps(r['device_us_by_kernel'])}, host us per call "
-            f"{r['host_us_per_call']:.1f}; L2 states (device us per call, "
-            f"row + combine): {json.dumps(r['l2_states'])}")
-    for path, prof in profiles.items():
-        log(f"in-step device us per launch ({path} training, "
-            f"torch.profiler, 10 steps): "
-            + (json.dumps(prof["in_step_us_per_launch"]) if prof
-               else "not measured"))
-    d2_bound = bound_ms(d2_bytes, d2_flops)
-    d1_bound = bound_ms(d1_bytes, d1_flops)
-    log(f"xla SpMM (D2, then D1 with the weight) at the slice shape: forward "
-        f"{xla_ms:.4f} ms, transpose {xla_t_ms:.4f} ms (bound of the "
-        f"composition as one SpMM {bound:.4f} ms)")
-    log(f"row_gather (D2) at the slice shape ({e_pad} rows of "
-        f"{graph.n_src_nodes} x {EMBEDDING_SIZE}): kernel {d2_ms:.4f} ms, "
-        f"plain = index_select {d2_plain_ms:.4f} ms, bound {d2_bound:.4f} ms "
-        f"({d2_bytes} bytes)")
-    log(f"block_segment_sum (D1) at the slice shape ({e_pad} x "
-        f"{EMBEDDING_SIZE} messages into {n} rows, T={D1_SHARE_EDGES}, "
-        f"{len(d1_us)} device kernels per call): f32 with the weight, as "
-        f"the xla path calls it: kernel {d1_ms:.4f} ms, plain "
-        f"{d1_plain_ms:.4f} ms, bound {d1_bound:.4f} ms ({d1_bytes} "
-        f"bytes, {d1_flops} flops; {d1_bound / d1_ms:.1%} of the bound), "
-        f"torch.sparse.mm of the weights' CSR {d1_library_ms:.4f} ms "
-        f"(max_abs_err vs plain {d1_lib_err:.3e}), index_add_ of "
-        f"pre-weighted messages {d1_index_add_ms:.4f} ms; the hub block "
-        f"alone ({hub_edges} edges) {d1_hub_ms:.4f} ms "
-        f"({d1_hub_ms / d1_ms:.1%} of a call); device us per call "
-        f"(torch.profiler, 20 calls, L2 warm) {json.dumps(d1_us)}; "
-        "modes on pre-weighted messages: "
-        + "; ".join(f"{m} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f}"
-                    for m, r in d1.items()))
-    log("bf16-x modes at the slice shape (CUDA events, L2 flushed; bound "
-        "with 2-byte x): " + "; ".join(
-            f"{k} {m} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-            f"bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes)"
-            for k, ms in bf16_modes.items() for m, r in ms.items()))
-    log("bf16-x max_abs_err (slice and edge cases): " + json.dumps(bf16_err))
-    log("bf16-x one-call yardsticks at the slice shape (torch.sparse.mm on "
-        "bf16 values; D2: index_select of bf16 rows): "
-        + json.dumps(library_bf16))
-    log("host us per wrapper call (host clock, 50 calls back to back, no "
-        f"sync between them): {json.dumps(host_us)}")
     log(f"launches by path: {json.dumps(paths)}")
-
-    def by_path(k):
-        return {p: c[k] for p, c in paths.items()}
-
-    def bf16_entry(kernel, errs, base=None):
-        """The kernel's bf16-x modes beside its other ones (``base``):
-        ms, plain ms, bound ms and max |err| per mode."""
-        ms = bf16_modes[kernel]
-        base = base or {}
-        return {f"modes_{k}": {**base.get(k, {}),
-                               **{m: r[src] for m, r in ms.items()}}
-                for k, src in (("ms", "ms"), ("plain_ms", "plain_ms"),
-                               ("bound_ms", "bound_ms"),
-                               ("bound_by", "bound_by"))} | {
-            "modes_max_abs_err": {**base.get("max_abs_err", {}), **errs},
-            "library_bf16x_ms": library_bf16[kernel]["ms"],
-            "library_bf16x_error": library_bf16[kernel]["error"]}
-
-    def in_step(path, wrapper):
-        prof = profiles[path]
-        return prof["in_step_us_per_launch"][wrapper] if prof else None
-
-    def k2_entry(kind, name, replaces, fn_name, launches):
-        r = k2[kind]
-        return {"name": name, "route": "cuda",
-                "source": "recbole_gnn_tpu_torch/csrc/ell_spmm.cu",
-                "replaces": replaces, "replaces_function": fn_name,
-                "launches": launches, "launches_by_path": by_path(name),
-                "max_abs_err": k2_err if kind == "K2" else k2_err_t,
-                "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"], "library": "torch.sparse.mm",
-                "k1_ms_same_graph": r["k1_ms"],
-                "device_kernels_per_call": len(r["device_us_by_kernel"]),
-                "device_us_by_kernel": r["device_us_by_kernel"],
-                "host_us_per_call": r["host_us_per_call"],
-                "gathered_tb_per_s": r["gathered_tb_per_s"],
-                "real_slots": r["real_slots"],
-                "bound_ms_padded": r["bound_ms_padded"],
-                "pad_free_plain_ms": r["pad_free_plain_ms"],
-                "l2_states": dict(r["l2_states"], in_step=in_step(
-                    "ell", "ell_spmm")),
-                "in_step_us_per_launch": in_step("ell", "ell_spmm"),
-                "in_step_us_per_launch_by_path": {
-                    p: in_step(p, "ell_spmm")
-                    for p in ("ell", "SimGCL", "XSimGCL") + tuple(
-                        m for m in GENERAL_MODELS if GENERAL_STEP_SPMMS[m])},
-                **bf16_entry(name, {"bf16x": bf16_err[name]})}
-
-    ell_paths = ("ell_train", "ell_serve", "simgcl_train", "xsimgcl_train",
-                 "sgl_serve", "sgl_bf16_train", "sgl_bf16_serve",
-                 "srgnn_cell_ell", "mhcn_social_serve",
-                 "parallel_single_train", "parallel_shards",
-                 "parallel_nccl_train", "parallel_single_fit",
-                 "parallel_gloo_train") + tuple(
-                     f"{m.lower()}_train" for m in GENERAL_MODELS) + tuple(
-                     f"{m.lower()}_social_ell_train" for m in SOCIAL_MODELS)
     log(f"chip_smoke: {time.perf_counter() - t_main:.1f} s")
-    print(json.dumps({"kernels": [
-        {"name": "segment_spmm", "route": "cuda",
-         "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
-         "replaces": "recbole_gnn_tpu/ops/pallas_spmm.py:227",
-         "replaces_function": "_spmm_kernel",
-         "launches": paths["pallas_train"]["segment_spmm"]
-         + paths["pallas_serve"]["segment_spmm"]
-         + paths["srgnn_cell_pallas"]["segment_spmm"]
-         + paths["diffnet_social_pallas_train"]["segment_spmm"]
-         + paths["sgl_bf16_pallas_steps"]["segment_spmm"],
-         "launches_by_path": by_path("segment_spmm"),
-         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-         "bound_ms": bound, "bound_by": bound_by(n_bytes, flops),
-         "library_ms": library_ms, "device_kernels_per_call": per_call,
-         "device_us_by_kernel": split_us,
-         "host_us_per_call": host_us["segment_spmm"],
-         "gathered_tb_per_s": gathered / kernel_ms / 1e9,
-         "in_step_us_per_launch": in_step("pallas", "segment_spmm"),
-         **bf16_entry("segment_spmm", {
-             f"bf16x_{p}": e for p, e in bf16_err["segment_spmm"].items()},
-             {"ms": {p: r["ms"] for p, r in k1_modes.items()},
-              "plain_ms": {p: r["plain_ms"] for p, r in k1_modes.items()},
-              "max_abs_err": mode_err}),
-         "packed_device_us_by_kernel": pack_us["K1"],
-         "modes_host_us_per_call": {p: host_us[f"segment_spmm {p}"]
-                                    for p in K1_MODES},
-         "share_pass_usage": {k: u for k, u in share_usage.items()
-                              if k.startswith("K1")}},
-        {"name": "segment_spmm_transpose", "route": "cuda",
-         "source": "recbole_gnn_tpu_torch/csrc/segment_spmm.cu",
-         "replaces": "recbole_gnn_tpu/ops/spmm.py:339",
-         "replaces_function": "_spmm_core_bwd (pallas_spmm over rev_*)",
-         "launches": paths["pallas_train"]["segment_spmm_transpose"]
-         + paths["srgnn_cell_pallas"]["segment_spmm_transpose"]
-         + paths["diffnet_social_pallas_train"]["segment_spmm_transpose"]
-         + paths["sgl_bf16_pallas_steps"]["segment_spmm_transpose"],
-         "launches_by_path": by_path("segment_spmm_transpose"),
-         "max_abs_err": max_err_t, "ms": kernel_t_ms,
-         "plain_ms": plain_t_ms, "bound_ms": bound_t,
-         "bound_by": bound_by(n_bytes_t, flops_t),
-         "library_ms": library_t_ms, "device_kernels_per_call": per_call_t,
-         "device_us_by_kernel": split_t_us,
-         "host_us_per_call": host_us["segment_spmm_transpose"],
-         "gathered_tb_per_s": gathered / kernel_t_ms / 1e9,
-         "in_step_us_per_launch": in_step("pallas", "segment_spmm"),
-         **bf16_entry("segment_spmm_transpose", {
-             f"bf16x_{p}": e
-             for p, e in bf16_err["segment_spmm_transpose"].items()},
-             {"ms": {p: r["t_ms"] for p, r in k1_modes.items()},
-              "plain_ms": {p: r["t_plain_ms"] for p, r in k1_modes.items()},
-              "max_abs_err": mode_err}),
-         "packed_device_us_by_kernel": pack_us["K1T"]},
-        {"name": "row_gather", "route": "cuda",
-         "source": "recbole_gnn_tpu_torch/csrc/row_gather.cu",
-         "replaces": "scripts/diag/r3_sparse_probe4.py:98",
-         "replaces_function": "case_q.kernel",
-         "launches": paths["xla_train"]["row_gather"]
-         + paths["xla_serve"]["row_gather"]
-         + paths["diffnet_social_xla_train"]["row_gather"]
-         + paths["sgl_bf16_xla_steps"]["row_gather"],
-         "launches_by_path": by_path("row_gather"),
-         "max_abs_err": xla_err["row_gather"], "ms": d2_ms,
-         "plain_ms": d2_plain_ms, "bound_ms": d2_bound,
-         "bound_by": bound_by(d2_bytes, d2_flops), "library_ms": d2_plain_ms,
-         "host_us_per_call": host_us["row_gather"],
-         "in_step_us_per_launch": in_step("xla", "row_gather"),
-         **bf16_entry("row_gather", {"bf16x": bf16_err["row_gather"]}),
-         "probe_shape": {k: probe2[k] for k in
-                         ("ms", "plain_ms", "bound_ms", "library_ms")}},
-        {"name": "block_segment_sum", "route": "cuda",
-         "source": "recbole_gnn_tpu_torch/csrc/segment_sum.cu",
-         "replaces": "scripts/diag/pallas_floor.py:16",
-         "replaces_function": "make_kernel",
-         "launches": paths["xla_train"]["block_segment_sum"]
-         + paths["xla_serve"]["block_segment_sum"]
-         + paths["diffnet_social_xla_train"]["block_segment_sum"]
-         + paths["sgl_bf16_xla_steps"]["block_segment_sum"],
-         "launches_by_path": by_path("block_segment_sum"),
-         "max_abs_err": xla_err["block_segment_sum"], "ms": d1_ms,
-         "plain_ms": d1_plain_ms, "bound_ms": d1_bound,
-         "bound_by": bound_by(d1_bytes, d1_flops),
-         "library_ms": d1_library_ms, "library": "torch.sparse.mm",
-         "index_add_preweighted_ms": d1_index_add_ms,
-         "device_kernels_per_call": len(d1_us), "device_us_by_kernel": d1_us,
-         "host_us_per_call": host_us["block_segment_sum"],
-         "in_step_us_per_launch": in_step("xla", "block_segment_sum"),
-         "hub_block_ms": d1_hub_ms,
-         **bf16_entry("block_segment_sum", {
-             "bf16x_f32_weighted": bf16_err["block_segment_sum"]},
-             {"ms": {m: r["ms"] for m, r in d1.items()},
-              "plain_ms": {m: r["plain_ms"] for m, r in d1.items()}}),
-         "probe_shape": {"bound_ms": probe1["bound_ms"],
-                         "library_ms": probe1["library_ms"],
-                         "modes": probe1["modes"]},
-         "modes_host_us_per_call": {
-             "bf16x_f32_weighted": host_us["block_segment_sum bf16x"]},
-         "share_pass_usage": {k: u for k, u in share_usage.items()
-                              if k.startswith("D1")}},
-        k2_entry("K2", "ell_spmm", "recbole_gnn_tpu/ops/ell_spmm.py:325",
-                 "ell_spmm / bucket_gather_sum / _bucket_sum (an XLA "
-                 "composition, no pallas_call)",
-                 sum(paths[p]["ell_spmm"] for p in ell_paths)),
-        k2_entry("K2T", "ell_spmm_transpose", "recbole_gnn_tpu/ops/spmm.py:336",
-                 "_spmm_core_bwd (ell_spmm over rev_ell)",
-                 sum(paths[p]["ell_spmm_transpose"] for p in ell_paths)),
-        k7a_entry(parallel["summary"]["shards"], paths),
-        k7b_entry(parallel["summary"]["topk_alone"], paths),
-    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -29,10 +29,10 @@
 // of spills (ptxas -v).  The read-once streams (idx, w, vdst) are
 // loaded, and out and the workspace stored, evict-first (.cs), which
 // keeps them from displacing x.  Measured against this kernel on the
-// card (the K2 probe, diag/ell_l2.py) and dropped, each being slower:
-// an L2 evict_last policy for x with a bulk L2 prefetch at the start of
-// the pass; skipping the pad slots by a per-row count of real slots;
-// and a warp-uniform trip count for that skip.  Pad slots all gather
+// card and dropped, each being slower: an L2 evict_last policy for x
+// with a bulk L2 prefetch at the start of the pass; skipping the pad
+// slots by a per-row count of real slots; and a warp-uniform trip
+// count for that skip.  Pad slots all gather
 // row 0, which stays in every SM's L1, so skipping them saves almost no
 // L2 traffic, while the bookkeeping costs registers and instructions
 // on every slot.

@@ -628,37 +628,3 @@ extern "C" int segment_spmm_launch(const void* x, const void* src,
                                       n_edges, d, share_edges, aligned16, st);
   });
 }
-
-// What the share pass's instance for (mode, bf16, vec) uses, launched
-// for rows of d elements in shares of share_edges: info[0] its registers
-// per thread, info[1] its local memory per thread in bytes (stack and
-// spills), info[2] its resident blocks per SM (the occupancy API, with
-// the launch's threads and shared memory), info[3] its threads per
-// block.  Returns a cudaError_t.
-extern "C" int segment_spmm_share_usage(int mode, int bf16, int vec, int d,
-                                        int share_edges, int* info) {
-  if (bad_args(d, vec, share_edges, mode, bf16) || info == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const void* fn = nullptr;
-  dispatch(bf16, vec, mode, [&](auto tag, auto v, auto m) {
-    fn = (const void*)share_sum_kernel<decltype(v)::value, decltype(m)::value,
-                                       typename decltype(tag)::type>;
-    return 0;
-  });
-  const ShareLayout l = share_layout(d, vec, share_edges);
-  if (l.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return (int)err;
-  err = (cudaError_t)allow_smem(fn, l);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, l.threads,
-                                                      l.smem);
-  if (err != cudaSuccess) return (int)err;
-  info[0] = attr.numRegs;
-  info[1] = (int)attr.localSizeBytes;
-  info[2] = blocks;
-  info[3] = l.threads;
-  return (int)cudaSuccess;
-}

@@ -983,31 +983,6 @@ int launch_mode(int mode, const float* m, const int32_t* dp, const float* wp,
   }
 }
 
-// the share pass's instance for (share mode, bf16, vec); null where
-// there is none
-const void* share_kernel(int smode, bool bf16, int vec) {
-  using B = __nv_bfloat16;
-  if (bf16) {
-    switch (vec) {
-      case 8: return (const void*)share_sum_kernel<B, 8, kF32W>;
-      case 4: return (const void*)share_sum_kernel<B, 4, kF32W>;
-      case 2: return (const void*)share_sum_kernel<B, 2, kF32W>;
-      default: return (const void*)share_sum_kernel<B, 1, kF32W>;
-    }
-  }
-#define SHARE_FN(V)                                                  \
-  (smode == kF32W  ? (const void*)share_sum_kernel<float, V, kF32W>  \
-   : smode == kF32 ? (const void*)share_sum_kernel<float, V, kF32>   \
-   : smode == kBf16 ? (const void*)share_sum_kernel<float, V, kBf16> \
-                    : (const void*)share_sum_kernel<float, V, kHilo>)
-  switch (vec) {
-    case 4: return SHARE_FN(4);
-    case 2: return SHARE_FN(2);
-    default: return SHARE_FN(1);
-  }
-#undef SHARE_FN
-}
-
 bool bad_vec(int vec, int d, bool bf16) {
   return vec < 1 || vec > (bf16 ? 8 : 4) || (vec & (vec - 1)) != 0 ||
          d % vec != 0;
@@ -1101,37 +1076,4 @@ extern "C" int block_segment_sum_launch(const void* msgs, const void* dst,
       return launch_mode<1>(smode, m, dp, wp, rp, op, cp, n_rows, n_edges, d,
                             share_edges, bulk, accumulate, st);
   }
-}
-
-// What the share pass's instance for (mode 0-2, weighted, bf16, vec)
-// uses on rows of d elements: info[0] its registers per thread, info[1]
-// its local memory per thread in bytes (stack and spills), info[2] its
-// resident blocks per SM (the occupancy API, with the launch's threads
-// and shared memory), info[3] its threads per block.  Returns a
-// cudaError_t.
-extern "C" int block_segment_sum_share_usage(int mode, int weighted,
-                                             int bf16, int vec, int d,
-                                             int* info) {
-  const int smode = share_mode(mode, weighted != 0, bf16 != 0);
-  if (d <= 0 || smode < 0 || bad_vec(vec, d, bf16 != 0) || info == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const ShareLayout l = share_layout(d, weighted != 0, bf16 ? 2 : 4);
-  if (l.warps < 1) return (int)cudaErrorInvalidValue;
-  const void* fn = share_kernel(smode, bf16 != 0, vec);
-  const size_t smem = l.warp_bytes * l.warps;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
-                                                      l.warps * 32, smem);
-  if (err != cudaSuccess) return (int)err;
-  info[0] = attr.numRegs;
-  info[1] = (int)attr.localSizeBytes;
-  info[2] = blocks;
-  info[3] = l.warps * 32;
-  return (int)cudaSuccess;
 }

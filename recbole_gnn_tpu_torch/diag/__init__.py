@@ -6,7 +6,4 @@ TPU diagnostics (``scripts/diag``), runnable as
 
 They run on the card unless ``--device cpu`` is given (then the plain
 versions run, on the host clock), and raise without a card otherwise.
-K2's probe, ``python -m recbole_gnn_tpu_torch.diag.ell_l2``, runs on the
-card only: it times the bucketed-ELL SpMM in four L2 states at the
-LightGCN slice shape, and A/B-tests variants of its source in one run.
 """

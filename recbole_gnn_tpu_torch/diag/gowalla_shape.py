@@ -1,8 +1,7 @@
 """A seeded synthetic interaction log of the LightGCN paper's Gowalla
 shape (He et al., 2020, Table 1): 29,858 users × 40,981 items,
 1,027,370 interactions, user activity lognormal, item popularity
-Zipf-like.  ``chip_smoke.py`` trains on it and the K2 probe
-(:mod:`recbole_gnn_tpu_torch.diag.ell_l2`) builds its graph from it.
+Zipf-like.  ``chip_smoke.py`` trains on it.
 """
 
 from __future__ import annotations

@@ -55,7 +55,7 @@ SEG_MAX = 1 << 20  # max edges per segment of the TPU layout
 MSGS_BYTES_BUDGET = 1 << 32     # 4 GB
 
 # edges per share of the kernel's schedule (the fastest of the sizes
-# chip_smoke.py times at the LightGCN slice shape; PERF.md)
+# timed on an H100 at the LightGCN slice shape; PERF.md)
 SHARE_EDGES = 256
 
 # pallas_spmm_precision values, in the kernel's mode order: f32x2 runs
@@ -440,27 +440,6 @@ def _segment_spmm_cuda(src, dst, weight, rowptr, x, share_edges: int,
     return out
 
 
-def share_pass_usage(precision: str, dtype: torch.dtype, vec: int, d: int,
-                     share_edges: int = SHARE_EDGES,
-                     lib: ctypes.CDLL | None = None) -> dict:
-    """What the share pass's instance for ``precision`` on an x of
-    ``dtype`` with ``vec``-element pieces uses, launched for rows of
-    ``d`` elements (the card's runtime: registers and local memory per
-    thread, resident blocks per SM, threads per block), in ``lib`` (a
-    build of ``csrc/segment_spmm.cu``; the module's by default).  For
-    ``chip_smoke.py`` and ``diag/share_passes.py``."""
-    _check_precision(precision)
-    info = (ctypes.c_int * 4)()
-    rc = _bind(lib or _library()).segment_spmm_share_usage(
-        PRECISIONS.index(precision), int(dtype == torch.bfloat16), vec, d,
-        share_edges, info)
-    if rc != 0:
-        raise RuntimeError(f"segment_spmm_share_usage failed: CUDA error "
-                           f"{rc}")
-    return dict(zip(("registers", "local_bytes", "blocks_per_sm",
-                     "threads"), info))
-
-
 def segment_spmm_transpose(rev_src: torch.Tensor, rev_dst: torch.Tensor,
                            rev_weight: torch.Tensor, rev_rowptr: torch.Tensor,
                            g: torch.Tensor,
@@ -549,11 +528,7 @@ def weight_cotangent(graph, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _library() -> ctypes.CDLL:
-    return _bind(cuda_build.load("segment_spmm"))
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` with its C entry points' argument types set."""
+    lib = cuda_build.load("segment_spmm")
     fn = lib.segment_spmm_launch
     if fn.argtypes is None:
         vp = ctypes.c_void_p
@@ -561,9 +536,4 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, i,
                        i, i, vp]
         fn.restype = ctypes.c_int
-    usage = lib.segment_spmm_share_usage
-    if usage.argtypes is None:
-        i = ctypes.c_int
-        usage.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
-        usage.restype = i
     return lib

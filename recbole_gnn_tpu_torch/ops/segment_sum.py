@@ -59,7 +59,7 @@ BM = 64      # rows per block of the stream mode (the probe's BM)
 EC = 2048    # edges per chunk of the stream mode (the probe's EC)
 
 # edges per share (one warp's) of the kernel's schedule (f32, bf16,
-# hilo): the size that chip_smoke.py checks and times (PERF.md)
+# hilo): the size that chip_smoke.py checks (PERF.md)
 SHARE_EDGES = 128
 
 
@@ -287,33 +287,8 @@ def _block_segment_sum_cuda(msgs, dst, rowptr, mode, out, weight, bm, ec,
     return out
 
 
-def share_pass_usage(mode: str, weighted: bool, dtype: torch.dtype,
-                     vec: int, d: int,
-                     lib: ctypes.CDLL | None = None) -> dict:
-    """What the share pass's instance for ``mode`` (f32, bf16, hilo;
-    ``weighted``: with the edge weight) on messages of ``dtype`` with
-    ``vec``-element pieces uses on rows of ``d`` elements (the card's
-    runtime: registers and local memory per thread, resident blocks per
-    SM, threads per block), in ``lib`` (a build of
-    ``csrc/segment_sum.cu``; the module's by default).  For
-    ``chip_smoke.py`` and ``diag/share_passes.py``."""
-    info = (ctypes.c_int * 4)()
-    rc = _bind(lib or _library()).block_segment_sum_share_usage(
-        MODES.index(mode), int(weighted), int(dtype == torch.bfloat16), vec,
-        d, info)
-    if rc != 0:
-        raise RuntimeError(f"block_segment_sum_share_usage failed: CUDA "
-                           f"error {rc}")
-    return dict(zip(("registers", "local_bytes", "blocks_per_sm",
-                     "threads"), info))
-
-
 def _library() -> ctypes.CDLL:
-    return _bind(cuda_build.load("segment_sum"))
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` with its C entry points' argument types set."""
+    lib = cuda_build.load("segment_sum")
     fn = lib.block_segment_sum_launch
     if fn.argtypes is None:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -325,9 +300,4 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         rows.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int]
         rows.restype = ctypes.c_longlong
-    usage = lib.block_segment_sum_share_usage
-    if usage.argtypes is None:
-        i = ctypes.c_int
-        usage.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
-        usage.restype = i
     return lib

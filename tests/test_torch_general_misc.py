@@ -15,6 +15,7 @@ atol 1e-6, scores rtol 1e-5 / atol 1e-6; top-k item ids equal.
 """
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -152,3 +153,11 @@ def test_case_study_matches_jax(monkeypatch, model):
     # without a history only PAD is masked
     open_ = t_cs.full_sort_scores(uids[:1], tm, tp, {})
     assert torch.isfinite(open_[0, 1:]).all() and open_[0, 0] <= NEG_INF
+
+
+def test_tests_run_torch_on_one_thread():
+    """The shared helper's thread count holds in the test process: at
+    torch's default of one thread per core, the test workers
+    oversubscribe the host's cores."""
+    assert os.environ["OMP_NUM_THREADS"] == "1"
+    assert torch.get_num_threads() == 1

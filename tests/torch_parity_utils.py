@@ -4,7 +4,15 @@ packages' models from one config, JAX params carried into the port,
 the JAX dropout draws, permutations and keep masks, and the loss /
 parts / gradients comparison at the tolerances those tests state (loss
 and parts rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 / atol 1e-6), and
-the two-epoch gate from one JAX checkpoint."""
+the two-epoch gate from one JAX checkpoint.
+
+Importing it sets torch to one intra-op thread (``OMP_NUM_THREADS``,
+unless the caller set it): the tests run in several worker processes
+at once, each of which collects every test file and so imports this
+module, and torch's default of one thread per core in each of them
+oversubscribes the host's cores on these small tensors (a test takes
+several times longer than alone).  Processes the tests start inherit
+the variable."""
 
 import importlib
 import json
@@ -34,6 +42,9 @@ from recbole_gnn_tpu_torch.quick_start import data_preparation as t_data_prepara
 from recbole_gnn_tpu_torch.train.checkpoint import params_from_numpy
 from recbole_gnn_tpu_torch.train.optim import tree_leaves
 from recbole_gnn_tpu_torch.train.trainer import Trainer as TTrainer
+
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
 
 j_spmm_mod = importlib.import_module("recbole_gnn_tpu.ops.spmm")
 j_pallas_mod = importlib.import_module("recbole_gnn_tpu.ops.pallas_spmm")
