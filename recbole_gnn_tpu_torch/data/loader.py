@@ -124,7 +124,16 @@ class FullSortEvalLoader:
     """Per-user eval batches: history indices (to mask) + positives.
 
     history = positives of *earlier* phases; pos = this split's items —
-    the [recbole] full-sort convention (SURVEY.md §3.3)."""
+    the [recbole] full-sort convention (SURVEY.md §3.3).
+
+    The arrays are fixed once built.  Iterating yields numpy batches of
+    ``eval_batch_size`` users, the history as the 0-padded
+    ``hist_mat`` rows.  The evaluator's full sort instead places the
+    arrays on its device once and slices every later pass there
+    (``eval/evaluator.py``): ``eval_users``, ``pos_mat``, ``pos_cnt``
+    and the history as CSR (:meth:`history_csr`, one entry a real
+    history item, not the padded matrix), cached in :attr:`resident`
+    by device for the loader's life."""
 
     def __init__(self, eval_dataset, history_datasets, config):
         self.n_items = eval_dataset.n_items
@@ -146,6 +155,20 @@ class FullSortEvalLoader:
         self.hist_mat, self.hist_cnt = _padded_user_rows(
             np.concatenate(h_users), np.concatenate(h_items),
             row_of, len(self.eval_users))
+        # {device: the arrays the evaluator placed there}
+        self.resident: dict = {}
+
+    def history_csr(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(indptr, rows, items): the history without its padding, row
+        by row — row r's items are ``items[indptr[r]:indptr[r + 1]]``,
+        each entry's row in ``rows``."""
+        indptr = np.zeros(len(self.hist_cnt) + 1, dtype=np.int64)
+        np.cumsum(self.hist_cnt, out=indptr[1:])
+        real = (np.arange(self.hist_mat.shape[1])[None, :]
+                < self.hist_cnt[:, None])
+        rows = np.repeat(np.arange(len(self.hist_cnt), dtype=np.int64),
+                         self.hist_cnt)
+        return indptr, rows, self.hist_mat[real]
 
     def __len__(self):
         return -(-len(self.eval_users) // self.batch_size)

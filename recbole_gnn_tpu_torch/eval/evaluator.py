@@ -21,6 +21,27 @@ per batch, as in the JAX package) bounds no device allocation.
 ``eval_scan`` (a TPU dispatch-latency knob) runs the same per-batch
 loop with the same results.
 
+A general model's full sort over a ``FullSortEvalLoader`` (mode
+``full``, no item-sharded mesh) reads the loader's arrays from the
+device: its first pass on a device places the fixed arrays there once
+(the eval users, the padded positives and their counts, the history
+as CSR: row pointer, entry rows and items, not the padded history
+matrix) and caches them on the loader (``FullSortEvalLoader.resident``),
+and every pass slices each chunk from them, on the chunk boundaries
+above, and masks the chunk's history by one ``index_put_`` at (row,
+item) plus the PAD column.  The masked entries, scores, top-k and sums
+are those of the host batches, so the metrics are the same bit for
+bit.  uniN/popN, the sequential models and the item-sharded path
+iterate the loader on the host and copy each batch.
+
+Counters (``utils/trace.py``, in the span ``evaluate``; ``fit/evaluate``
+inside ``fit``): ``passes`` (one an evaluation), ``chunks`` (every
+chunk or batch scored), ``resident_chunks`` (those sliced from arrays
+resident on the device) and ``h2d_bytes`` (the bytes of the host
+arrays the evaluator handed to the model's device, the one-time
+placement included; counted on a CPU device too, where the hand-over
+copies nothing).
+
 With a mesh (``Evaluator(mesh=)``, the trainer's) whose ``tp`` axis has
 more than one rank, a factorized model's full sort runs item-sharded
 (``parallel/topk.distributed_full_sort_topk``): every rank of the
@@ -34,6 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from recbole_gnn_tpu_torch.data.loader import FullSortEvalLoader
 from recbole_gnn_tpu_torch.eval.metrics import topk_metrics
 from recbole_gnn_tpu_torch.ops.topk import NEG_INF, masked_topk
 from recbole_gnn_tpu_torch.parallel.mesh import axis_group, axis_size
@@ -108,8 +130,13 @@ class Evaluator:
         return self._metric_sums(idx, batch)
 
     def _full_sort_sums(self, scores, batch):
-        """Mask history + PAD on a (B, n_items) score matrix, top-k."""
-        scores.scatter_(1, batch["history_items"], NEG_INF)
+        """Mask history + PAD on a (B, n_items) score matrix, top-k.  A
+        host batch carries the padded ``history_items``, a resident
+        chunk the (``hist_row``, ``hist_item``) pairs of its history."""
+        if "history_items" in batch:
+            scores.scatter_(1, batch["history_items"], NEG_INF)
+        else:
+            scores[batch["hist_row"], batch["hist_item"]] = NEG_INF
         scores[:, 0] = NEG_INF   # PAD item (also where history is padded)
         _, idx = masked_topk(scores, self.max_k)
         return self._metric_sums(idx, batch)
@@ -128,14 +155,55 @@ class Evaluator:
                 topk_items, (0, self.max_k - k))
         return self._metric_sums(topk_items, batch)
 
+    def _chunk_rows(self) -> int:
+        """Users of one full-sort chunk: its (users, n_items) f32 scores
+        stay within ``SCORE_BYTES_BUDGET``."""
+        return max(1, SCORE_BYTES_BUDGET // (4 * max(1, self.n_items)))
+
     def _score_chunks(self, batch: dict) -> list[dict]:
         """A host full-sort batch without its weight-0 padding rows, in
-        user chunks whose (users, n_items) f32 scores stay within
-        ``SCORE_BYTES_BUDGET``."""
+        user chunks of :meth:`_chunk_rows` users."""
         keep = np.flatnonzero(batch["weight"] > 0)
-        rows = max(1, SCORE_BYTES_BUDGET // (4 * max(1, self.n_items)))
+        rows = self._chunk_rows()
         return [{k: v[keep[lo:lo + rows]] for k, v in batch.items()}
                 for lo in range(0, len(keep), rows)]
+
+    def _place(self, arrays: dict) -> dict[str, torch.Tensor]:
+        """:func:`to_device`, its bytes counted as ``h2d_bytes``."""
+        out = to_device(arrays, self.device)
+        trace.count("h2d_bytes", sum(t.nbytes for t in out.values()))
+        return out
+
+    def _uses_resident(self, loader, mode: str) -> bool:
+        return (mode == "full" and not self.is_sequential
+                and isinstance(loader, FullSortEvalLoader)
+                and not self._use_dist_eval(mode))
+
+    def _resident_chunks(self, loader: FullSortEvalLoader):
+        """The chunks of :meth:`_score_chunks` over the loader's batches,
+        each sliced from the loader's arrays resident on the device
+        (placed at the first pass there)."""
+        arr = loader.resident.get(self.device)
+        if arr is None:
+            indptr, rows, items = loader.history_csr()
+            arr = loader.resident[self.device] = self._place({
+                "user_id": loader.eval_users, "pos_items": loader.pos_mat,
+                "pos_len": loader.pos_cnt, "hist_row": rows,
+                "hist_item": items})
+            arr["indptr"] = indptr   # host: slices without a device read
+        indptr, n = arr["indptr"], len(loader.eval_users)
+        step, rows = loader.batch_size, self._chunk_rows()
+        for b0 in range(0, n, step):
+            b1 = min(b0 + step, n)
+            for lo in range(b0, b1, rows):
+                hi = min(lo + rows, b1)
+                h = slice(int(indptr[lo]), int(indptr[hi]))
+                yield {"user_id": arr["user_id"][lo:hi],
+                       "pos_items": arr["pos_items"][lo:hi],
+                       "pos_len": arr["pos_len"][lo:hi],
+                       "weight": torch.ones(hi - lo, device=self.device),
+                       "hist_row": arr["hist_row"][h] - lo,
+                       "hist_item": arr["hist_item"][h]}
 
     # -- public API -----------------------------------------------------
 
@@ -180,13 +248,21 @@ class Evaluator:
                         return self._full_sort_sums(scores, b)
                     return self._candidate_sums(
                         torch.gather(scores, 1, b["candidates"]), b)
-            chunked = not self.is_sequential and mode == "full"
-            for batch in loader:
-                parts = (self._score_chunks(batch) if chunked else [batch])
-                for part in parts:
-                    sums = batch_sums(to_device(part, self.device))
-                    for k, v in sums.items():
-                        totals[k] = v if k not in totals else totals[k] + v
+            trace.count("passes", 1)
+            resident = self._uses_resident(loader, mode)
+            if resident:
+                parts = self._resident_chunks(loader)
+            else:
+                chunked = not self.is_sequential and mode == "full"
+                parts = (self._place(part) for batch in loader
+                         for part in (self._score_chunks(batch) if chunked
+                                      else [batch]))
+            for part in parts:
+                sums = batch_sums(part)
+                trace.count("chunks", 1)
+                trace.count("resident_chunks", int(resident))
+                for k, v in sums.items():
+                    totals[k] = v if k not in totals else totals[k] + v
         if not totals:
             return {}
         # one device→host read for the whole pass
