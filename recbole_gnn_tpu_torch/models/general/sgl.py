@@ -34,6 +34,15 @@ The keep masks come from a generator derived from the trainer's;
 ``epoch_start``/``init_extras`` take the JAX ones in the tests
 (``keeps``: per view the list of per-repetition keep masks over the
 interactions).
+
+Counters, under the span open at a build (``fit/epoch_start`` in
+``fit``): ``views`` (views built), ``edges`` (the graph's directed
+edges, two per interaction, over every view and repetition) and
+``kept_edges`` (those of weight > 0 after the drop, two per kept
+interaction).  A keep mask's sum is read only after the next build's
+seed draw, whose read of the seeds has already waited for the device,
+so the count adds no wait; a build's views are counted by the build
+after it.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ from recbole_gnn_tpu_torch.ops.ell_spmm import reweight_ws, with_ws
 from recbole_gnn_tpu_torch.ops.graphops import sym_norm_weights
 from recbole_gnn_tpu_torch.ops.spmm import (BipartiteDenseGraph, spmm_any,
                                             spmm_dense_bipartite)
+from recbole_gnn_tpu_torch.utils import trace
 
 _VIEWS = ("view1", "view2")
 
@@ -97,6 +107,8 @@ class SGL(GeneralGraphRecommender):
         # per view: (the extras tensors it was built from, per-layer graphs)
         self._view_graphs: dict[str, tuple] = {}
         self.layout_builds = 0
+        # per view built and not yet counted: its keep masks' sums
+        self._uncounted: list[torch.Tensor] = []
 
     # -- augmentation ----------------------------------------------------
 
@@ -120,9 +132,10 @@ class SGL(GeneralGraphRecommender):
         if keeps is None:
             keeps = [self._keep_mask(g, n_inter, users, items)
                      for g in split_keys(gen, n_rep)]
+        keeps = [keep.to(self.device) for keep in keeps]
+        self._uncounted.append(torch.stack([keep.sum() for keep in keeps]))
         outs = []
         for keep in keeps:
-            keep = keep.to(self.device)
             if self._is_dense:
                 kf = keep.to(torch.float32)
                 a_bin = torch.zeros((self.n_users, self.n_items),
@@ -161,8 +174,19 @@ class SGL(GeneralGraphRecommender):
                   for b in range(len(r_layers[0])))
         return f, r
 
+    def _count_views(self, n_inter: int) -> None:
+        """The counters of the views built and not yet counted."""
+        if not self._uncounted:
+            return
+        kept = [k for v in self._uncounted for k in v.tolist()]
+        trace.count("views", len(self._uncounted))
+        trace.count("edges", 2 * n_inter * len(kept))
+        trace.count("kept_edges", 2 * sum(kept))
+        self._uncounted = []
+
     def _make_extras(self, gen, consts, keeps=None):
         gens = (split_keys(gen, 2) if keeps is None else (None, None))
+        self._count_views(consts["aug_users"].shape[0])
         out = {}
         for i, name in enumerate(_VIEWS):
             out[name] = self._build_view(gens[i], consts,

@@ -33,7 +33,8 @@ most one graph per loss mode is kept: a new state drops the old one
 with its memory pool.
 
 Spans: ``observe``, ``capture`` and ``replay`` under the trainer's
-``step``; the trainer's counter ``replayed`` counts the replays.
+``step``; the trainer's counters ``captures`` and ``replayed`` count the
+captures and the replays.
 """
 
 from __future__ import annotations
@@ -134,6 +135,7 @@ class StepGraphs:
 
     @staticmethod
     def _capture(st: _State, eager, args, batch, rng, mode):
+        trace.count("captures", 1)
         with trace.span("capture"):
             inputs = {k: v.clone() for k, v in batch.items()}
             graph = torch.cuda.CUDAGraph()

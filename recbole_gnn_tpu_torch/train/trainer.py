@@ -158,7 +158,8 @@ class Trainer:
         post-resume validation never overwrites a better saved model.
 
         The whole call is the span ``fit``, each epoch's batch loop the
-        span ``epoch`` (``utils/trace.py``); the jsonl ``train_epoch``
+        span ``epoch`` and the model's ``epoch_start`` hook before it the
+        span ``epoch_start`` (``utils/trace.py``); the jsonl ``train_epoch``
         event's ``seconds`` is that span's, and its ``spans`` are the
         ``{path: [count, total_ms]}`` of the spans closed since the
         previous ``train_epoch`` event (this epoch's loop and the
@@ -220,8 +221,9 @@ class Trainer:
         mark = trace.totals()
         for epoch in range(start_epoch, self.epochs):
             rng = _epoch_generator(seed, epoch)
-            extras = self.model.epoch_start(
-                epoch, self._logical(params)[0], consts, extras, rng)
+            with trace.span("epoch_start"):
+                extras = self.model.epoch_start(
+                    epoch, self._logical(params)[0], consts, extras, rng)
             mode = int(self.model.loss_mode(epoch))
             if mode not in step_fns:
                 step_fns[mode] = self._step_fn(mode)

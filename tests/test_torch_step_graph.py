@@ -254,7 +254,7 @@ def test_replayed_steps_equal_eager_steps(tmp_path, card):
         launches[side] = (np.subtract(n1, n0).tolist(),
                           np.subtract(n2, n1).tolist())
     torch.cuda.synchronize(card)
-    assert _step_counters() == {"steps": 20, "replayed": 19}
+    assert _step_counters() == {"steps": 20, "captures": 1, "replayed": 19}
     assert _span_count("step/observe") == _span_count("step/capture") == 1
     # the observed step and the capture launch through the wrappers as
     # the first two eager steps do; a replay launches through none
@@ -307,7 +307,7 @@ def test_a_new_state_is_captured_again_and_frees_the_old(tmp_path, card):
     gc.collect()
     assert old() is None
     assert _span_count("step/capture") == 2
-    assert _step_counters() == {"steps": 6, "replayed": 4}
+    assert _step_counters() == {"steps": 6, "captures": 2, "replayed": 4}
     assert int(opt_state["t"]) == 6
 
 
@@ -322,7 +322,7 @@ def test_srgnn_is_captured_at_its_second_step(tmp_path, card):
         loss = trainer.train_step(params, opt_state, trainer.model.consts,
                                   {}, to_device(b, card), rng)
         assert torch.isfinite(loss)
-    assert _step_counters() == {"steps": 4, "replayed": 3}
+    assert _step_counters() == {"steps": 4, "captures": 1, "replayed": 3}
     assert _span_count("step/capture") == 1
 
 
@@ -339,6 +339,7 @@ def test_every_model_fits_by_the_rule(tmp_path, card, name):
     replayed = counters.get("replayed", 0)
     assert counters["steps"] == 2 * len(train)
     assert (replayed > 0) == (captures > 0) == (name in CAPTURED)
+    assert counters.get("captures", 0) == captures
     # each capture follows an eager step of its state
     assert replayed <= counters["steps"] - captures
     assert all(torch.isfinite(p).all() for p in tree_leaves(trainer.params)
