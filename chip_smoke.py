@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``recbole_gnn_tpu_torch/csrc``
+Builds the port's five CUDA sources from ``recbole_gnn_tpu_torch/csrc``
 (one ``nvcc`` each, all at once) and drives the port's paths end to end
 through the entry points a user calls, on a seeded synthetic dataset of
 the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
@@ -38,13 +38,18 @@ the LightGCN paper's Gowalla shape (29,858 users × 40,981 items,
    of 50 steps (HMLET 2 whole epochs): per step K2 forward / K2ᵀ back SGL 9 / 9 (the graph and
    two augmented views, 3 layers each; each view's ELL layouts and their
    kernel arguments made once per epoch, checked through
-   ``_layout_args.builds``), NGCF 3 / 3, NCL 3 / 3, HMLET 6 / 6 (4
+   ``_layout_args.builds``) and 2 / 2 calls of the InfoNCE pair
+   (``nce_lse`` forward / ``nce_lse_grad`` back: users and items), NCL
+   3 / 3 and 4 / 4 of the pair (two layer terms, two ProtoNCE terms),
+   NGCF 3 / 3, HMLET 6 / 6 (4
    layers, gates at 2 and 3), LightGCL 4 / 4 (2 layers over its
    rectangular graphs), DirectAU with the LightGCN encoder 3 / 3,
    NeuMF and SSL4REC none; the deliberate overrides (NCL
    ``warm_up_step: 0``, HMLET ``warm_up_epochs: 0``, DirectAU
    ``encoder: LightGCN``) are logged with their reasons.  Each graph
-   model's step is held against the same step on plain SpMMs, and so
+   model's step is held against the same step on plain SpMMs and, for
+   SGL and NCL, the plain InfoNCE (``nce_lse_plain``: cuBLAS f32 and
+   ``torch.logsumexp``), and so
    are NGCF with ``node_dropout: 0.1`` (its re-weighted graph runs D2
    and D1) and LightGCL on ``pallas`` (K1 and K1ᵀ); SGL is exported
    and served, and NeuMF's export must refuse; then SGL with
@@ -160,6 +165,14 @@ f32 and bf16 x, K1ᵀ in every precision, K2, K2ᵀ and D1 (f32 and bf16
 messages) at the slice shape for bit equality, and checks from the
 profiler that one call of K1, K1ᵀ, D1 (share pass and carry pass), K2
 and K2ᵀ (row pass and combine pass) runs exactly two device kernels.
+The InfoNCE pair (``csrc/info_nce.cu``) is held against its plain
+version in float64 at SGL's two shapes (2,048 × 29,859 and 2,048 ×
+40,982), an NCL centroid shape (2,048 × 1,000), all at d = 64, and at
+2,048 × 29,859 with d = 128 (the kernels' wider instance): lse within
+4e-6, dv1 and dav2 within 5e-6 of their largest entry (the card tests'
+bounds, ``tests/test_torch_nce.py``), one forward and one backward
+launch a call, a rerun bit for bit, and a forward call runs exactly two
+device kernels.
 The build prints each kernel's registers and spills (``-Xptxas=-v``).
 
 Prints the card's name and power limit, the build and check lines, the
@@ -229,7 +242,8 @@ DEPTH_CUTS = (
     f"the session card-vs-CPU step runs the batch's first "
     f"{SESSION_STEP_ROWS} sessions, not 4,096 (the CPU side of TAGNN's "
     "and LESSR's steps dominated the phase)")
-SOURCES = ("segment_spmm", "row_gather", "segment_sum", "ell_spmm")
+SOURCES = ("segment_spmm", "row_gather", "segment_sum", "ell_spmm",
+           "info_nce")
 K1_MODES = ("bf16", "packed")   # K1's precisions besides f32x2
 CHUNK = 100_003            # the forced xla chunk: boundaries inside rows
 
@@ -277,6 +291,15 @@ BF16_STEP_GRAD_NORM = 2e-2
 # exported bf16 tables against the plain bf16 propagation: |Δ| within
 # this share of the largest |entry| (the CPU tests' table bound)
 BF16_TABLE_REL = 1e-2
+# the InfoNCE pair against its plain version in float64, (B, n, d):
+# SGL's users and items, NCL's centroids, the D = 128 instance; at the
+# card tests' tau and bounds (tests/test_torch_nce.py: the f32 plain
+# version reads up to ~1e-6 in lse and ~1.2e-6 in the gradients)
+NCE_SHAPES = ((2048, 29859, 64), (2048, 40982, 64), (2048, 1000, 64),
+              (2048, 29859, 128))
+NCE_TAU = 0.2
+NCE_LSE_ABS = 4e-6
+NCE_GRAD_REL = 5e-6
 
 
 def log(msg: str):
@@ -338,6 +361,7 @@ def counters():
     from recbole_gnn_tpu_torch.ops.ell_spmm import (ell_spmm,
                                                     ell_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.gather import row_gather
+    from recbole_gnn_tpu_torch.ops.nce import nce_lse, nce_lse_grad
     from recbole_gnn_tpu_torch.ops.segment_spmm import (
         segment_spmm, segment_spmm_transpose)
     from recbole_gnn_tpu_torch.ops.segment_sum import block_segment_sum
@@ -346,6 +370,7 @@ def counters():
             "segment_spmm_transpose": segment_spmm_transpose,
             "row_gather": row_gather, "block_segment_sum": block_segment_sum,
             "ell_spmm": ell_spmm, "ell_spmm_transpose": ell_spmm_transpose,
+            "nce_lse": nce_lse, "nce_lse_grad": nce_lse_grad,
             "distributed_full_sort_topk": distributed_full_sort_topk}
 
 
@@ -631,6 +656,70 @@ def check_ell_cases(rng: np.random.Generator, dev) -> tuple[float, float]:
                 f"max_abs_err (finite)={err:.3e} rerun bit-equal")
             errs[i] = max(errs[i], err)
     return errs[0], errs[1]
+
+
+def check_nce(dev) -> dict:
+    """The InfoNCE pair (``ops/nce.py``: ``nce_lse`` forward,
+    ``nce_lse_grad`` back) against its plain version in float64 at each
+    of NCE_SHAPES, on L2-normalised rows as ``info_nce`` passes them and
+    a cotangent in [0, 1): lse within NCE_LSE_ABS, dv1 and dav2 within
+    NCE_GRAD_REL of their largest entry (the f32 plain version's errors
+    logged beside), one forward and one backward launch a call, a rerun
+    bit for bit; and a forward call at the first shape runs exactly two
+    device kernels.  Returns the worst errors."""
+    from recbole_gnn_tpu_torch.models.init import l2_normalize
+    from recbole_gnn_tpu_torch.ops.nce import nce_lse, nce_lse_plain
+
+    def run(fn, q, k, g):
+        q, k = (x.detach().requires_grad_(True) for x in (q, k))
+        lse = fn(q, k, NCE_TAU)
+        out = (lse.detach(), *torch.autograd.grad(lse, (q, k), g))
+        torch.cuda.synchronize()
+        return out
+
+    def errs(got, ref):
+        lse, dq, dk = (x.double() for x in got)
+        return {"lse": float((lse - ref[0]).abs().max()),
+                "dv1": float((dq - ref[1]).abs().max() / ref[1].abs().max()),
+                "dav2": float((dk - ref[2]).abs().max()
+                              / ref[2].abs().max())}
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = {"lse": 0.0, "dv1": 0.0, "dav2": 0.0}
+    for b, n, d in NCE_SHAPES:
+        tag = f"NCE {b} x {n}, d {d}"
+        q, k = (l2_normalize(torch.randn(r, d, device=dev, generator=gen))
+                for r in (b, n))
+        g = torch.rand(b, device=dev, generator=gen)
+        reset_counts()
+        got = run(nce_lse, q, k, g)
+        launched = {k_: v for k_, v in read_counts().items() if v}
+        if launched != {"nce_lse": 1, "nce_lse_grad": 1}:
+            raise AssertionError(f"[{tag}] launched {launched}; expected "
+                                 "one forward and one backward")
+        ref = run(nce_lse_plain, q.double(), k.double(), g.double())
+        kernel, plain = errs(got, ref), errs(
+            run(nce_lse_plain, q, k, g), ref)
+        log(f"[{tag}] against the float64 plain version: kernel "
+            f"{json.dumps(kernel)}, f32 plain {json.dumps(plain)}")
+        if not (kernel["lse"] < NCE_LSE_ABS and kernel["dv1"] < NCE_GRAD_REL
+                and kernel["dav2"] < NCE_GRAD_REL):
+            raise AssertionError(f"[{tag}] the kernel pair disagrees with "
+                                 f"its plain version: {kernel}")
+        for kind, x, y in zip(("lse", "dv1", "dav2"), got,
+                              run(nce_lse, q, k, g)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"[{tag}] a rerun's {kind} differs")
+        worst = {kk: max(v, kernel[kk]) for kk, v in worst.items()}
+        if (b, n, d) == NCE_SHAPES[0]:
+            with torch.no_grad():
+                names = device_kernels(lambda: nce_lse(q, k, NCE_TAU))
+            log(f"[{tag}] device kernels per forward call: {names}")
+            if len(names) != 2:
+                raise AssertionError(f"the profiler saw {names} per "
+                                     "nce_lse call; expected 2")
+        del q, k, g, got, ref
+    return worst
 
 
 def k1_run(arrays, rp, inp, prec: str, t, transpose: bool = False):
@@ -1395,6 +1484,17 @@ GENERAL_STEP_SPMMS = {"SGL": 9, "NGCF": 3, "NCL": 3, "HMLET": 6,
                       "LightGCL": 4, "DirectAU": 3, "NeuMF": 0, "SSL4REC": 0}
 GENERAL_EVAL_SPMMS = {"SGL": 3, "NGCF": 3, "NCL": 3, "HMLET": 6,
                       "LightGCL": 4, "DirectAU": 3, "NeuMF": 0, "SSL4REC": 0}
+# calls of the InfoNCE pair per training step (nce_lse forward, as many
+# nce_lse_grad): SGL's users and items; NCL's two layer terms and, with
+# warm_up_step 0 (GENERAL_OVERRIDES), its two ProtoNCE terms
+GENERAL_STEP_NCES = {"SGL": 2, "NCL": 4}
+
+
+def nce_counts(model_name: str, steps: int = 1) -> dict:
+    """The InfoNCE pair's launches in ``steps`` of ``model_name``'s
+    training steps, by counter (none for a model without the pair)."""
+    n = GENERAL_STEP_NCES.get(model_name, 0) * steps
+    return {"nce_lse": n, "nce_lse_grad": n} if n else {}
 
 
 # SGL with bf16 activations: its run on ell (as the general models'),
@@ -1406,11 +1506,11 @@ SGL_BF16_STEPS = 2
 SGL_BF16_GRAPHS = (
     ("pallas", {"sparse_spmm_impl": "pallas",
                 "pallas_spmm_precision": "f32x2"},
-     {"segment_spmm": 9, "segment_spmm_transpose": 9}),
+     {"segment_spmm": 9, "segment_spmm_transpose": 9, **nce_counts("SGL")}),
     ("xla", {"sparse_spmm_impl": "xla"},
-     {"row_gather": 18, "block_segment_sum": 18}),
+     {"row_gather": 18, "block_segment_sum": 18, **nce_counts("SGL")}),
     ("dense", {"enable_sparse": False,
-               "dense_graph_max_entries": 1_300_000_000}, {}))
+               "dense_graph_max_entries": 1_300_000_000}, nce_counts("SGL")))
 SGL_BF16_METRIC_BAND = 0.02     # the JAX package's own band against f32
 
 
@@ -1434,10 +1534,12 @@ def general_step_vs_plain(model, params: dict, extras: dict, batch: dict,
                           bf16: bool = False) -> dict:
     """One training step of ``model`` on the kernels against the same
     step with every sparse SpMM replaced by the plain ``spmm_coo`` over
-    the same graph and weights (the views', the dropped edges'),
-    differentiated by autograd; same params, extras, batch and draws (a
-    card generator seeded alike for both).  The kernel step must launch
-    ``want``, the plain step nothing.  Gradients of every param leaf:
+    the same graph and weights (the views', the dropped edges') and the
+    InfoNCE's logsumexp by its plain version (``nce_lse_plain``: cuBLAS
+    f32 and ``torch.logsumexp``), differentiated by autograd; same
+    params, extras, batch and draws (a card generator seeded alike for
+    both).  The kernel step must launch ``want``, the plain step
+    nothing.  Gradients of every param leaf:
     |Δ| ≤ STEP_RTOL·|g| + GENERAL_STEP_ATOL_FRAC·max|g| with max|g| over
     all leaves (a gate's bias before its BatchNorm has a true gradient
     of 0, so its own maximum is rounding noise); the loss: STEP_RTOL.
@@ -1446,6 +1548,7 @@ def general_step_vs_plain(model, params: dict, extras: dict, batch: dict,
     rounding (:class:`PlainSpmm`), held by :func:`hold_step`'s bf16
     bounds."""
     import importlib
+    from recbole_gnn_tpu_torch.ops import nce
     from recbole_gnn_tpu_torch.ops.segment_spmm import spmm_coo
     # by module path: the ops package re-exports a function named spmm
     spmm_mod = importlib.import_module("recbole_gnn_tpu_torch.ops.spmm")
@@ -1465,18 +1568,21 @@ def general_step_vs_plain(model, params: dict, extras: dict, batch: dict,
             return PlainSpmm.apply(x, graph)
         return spmm_coo(graph.src, graph.dst, graph.weight, x, graph.n_nodes)
 
-    kernel_spmm = spmm_mod.spmm
+    kernel_spmm, kernel_nce = spmm_mod.spmm, nce.nce_lse
     for m in [spmm_mod] + bound:
         m.spmm = plain
+    nce.nce_lse = nce.nce_lse_plain   # what models/losses.py calls
     try:
         reset_counts()
         p_loss, p_grads = step_loss_and_grads(model, params, extras, batch,
                                               mode)
         if any(read_counts().values()):
-            raise AssertionError(f"[{tag}] the plain step launched a kernel")
+            raise AssertionError(f"[{tag}] the plain step launched a kernel: "
+                                 f"{read_counts()}")
     finally:
         for m in [spmm_mod] + bound:
             m.spmm = kernel_spmm
+        nce.nce_lse = kernel_nce
     return hold_step(tag, "plain", (k_loss, k_grads), (p_loss, p_grads),
                      bf16)
 
@@ -1664,11 +1770,13 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
     prop = GENERAL_STEP_SPMMS[model_name] * issued
     want = {k: 0 for k in counters()}
     want.update(ell_spmm=prop + GENERAL_EVAL_SPMMS[model_name] * n_evals,
-                ell_spmm_transpose=prop)
+                ell_spmm_transpose=prop, **nce_counts(model_name, issued))
     log(f"[{tag}] train launches: {counts} (expected {want}: "
         f"{GENERAL_STEP_SPMMS[model_name]} K2 and as many K2T per step x "
         f"{issued} steps + {GENERAL_EVAL_SPMMS[model_name]} K2 x "
-        f"{n_evals} evaluations)")
+        f"{n_evals} evaluations; "
+        f"{GENERAL_STEP_NCES.get(model_name, 0)} InfoNCE pair calls per "
+        "step)")
     if counts != want:
         raise AssertionError(f"[{tag}] training launch counts differ")
     log(f"[{tag}] layouts whose kernel arguments were made in the run "
@@ -1707,7 +1815,8 @@ def general_path(tmp: str, model_name: str, dev, over: dict | None = None,
         batch = to_device(next(iter(train_loader)), dev)
         step_err = general_step_vs_plain(
             model, params, extras, batch, mode,
-            {"ell_spmm": n, "ell_spmm_transpose": n}, tag, bf16)
+            {"ell_spmm": n, "ell_spmm_transpose": n,
+             **nce_counts(model_name)}, tag, bf16)
         log(f"[{tag}] step vs plain (loss mode {mode}): " + ", ".join(
             f"{k} {v:.6e}" for k, v in step_err.items()))
     lap(f"[{tag}] evaluation and step vs plain")
@@ -1824,8 +1933,9 @@ def sgl_bf16_phase(tmp: str, f32_run: dict, dev) -> dict:
 
 def dense_bf16_step(model, params: dict, extras: dict, batch: dict,
                     tag: str) -> dict:
-    """SGL's bf16 step on the dense graph, which launches no kernel of
-    the port: the first layer's f32 product of the bf16 input (JAX's
+    """SGL's bf16 step on the dense graph, which launches no SpMM kernel
+    of the port (only the InfoNCE pair, 2 / 2 calls a step, on both
+    sides): the first layer's f32 product of the bf16 input (JAX's
     promotion) is the f32 product of the bf16-rounded embeddings, so
     the propagated tables must equal those of the f32 model from the
     rounded embeddings (within 1e-6 of their largest |entry|: the same
@@ -1837,9 +1947,10 @@ def dense_bf16_step(model, params: dict, extras: dict, batch: dict,
     k_step = step_loss_and_grads(model, params, extras, batch, 0)
     with torch.no_grad():
         tables = model.propagate(params, model.consts, extras)
-    if any(read_counts().values()):
-        raise AssertionError(f"[{tag}] the dense step launched a kernel: "
-                             f"{read_counts()}")
+    got = {k: v for k, v in read_counts().items() if v}
+    if got != nce_counts("SGL"):
+        raise AssertionError(f"[{tag}] the dense step launched {got}, "
+                             f"expected {nce_counts('SGL')}")
     model.act_dtype = None
     try:
         f_step = step_loss_and_grads(model, rounded, extras, batch, 0)
@@ -3492,6 +3603,12 @@ def main() -> int:
             log("device kernels per call at the slice shape "
                 f"(torch.profiler): {json.dumps(per_call)}")
         lap("device kernels per call")
+        # the InfoNCE pair against its plain version (autograd: outside
+        # inference mode)
+        nce_err = check_nce(dev)
+        log("max error of the InfoNCE pair against its float64 plain "
+            f"version (lse abs; dv1, dav2 rel): {json.dumps(nce_err)}")
+        lap("InfoNCE pair checks")
 
         # 7. the general family on ell, each at its published settings,
         # in a process of its own

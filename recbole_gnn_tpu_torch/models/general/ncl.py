@@ -23,6 +23,7 @@ from recbole_gnn_tpu_torch.models.base import device_generator
 from recbole_gnn_tpu_torch.models.general.lightgcn import LightGCN
 from recbole_gnn_tpu_torch.models.init import l2_normalize, split_keys
 from recbole_gnn_tpu_torch.models.losses import bpr_loss, emb_loss, info_nce
+from recbole_gnn_tpu_torch.ops import nce
 from recbole_gnn_tpu_torch.ops.kmeans import kmeans
 from recbole_gnn_tpu_torch.ops.spmm import spmm_any
 
@@ -40,6 +41,8 @@ class NCL(LightGCN):
         self.k = int(config.get("num_clusters", 1000))
         self.m_step = int(config.get("m_step", 1))
         self.warm_up_step = int(config.get("warm_up_step", 20))
+        if self.device.type == "cuda":   # the InfoNCE kernel's rows
+            nce.check_width(self.latent_dim, "NCL embedding_size")
 
     # -- prototype E-step -------------------------------------------------
 

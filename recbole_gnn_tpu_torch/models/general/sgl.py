@@ -57,6 +57,7 @@ from recbole_gnn_tpu_torch.models.base import (GeneralGraphRecommender,
                                                device_generator)
 from recbole_gnn_tpu_torch.models.init import split_keys, xavier_uniform
 from recbole_gnn_tpu_torch.models.losses import emb_loss, info_nce
+from recbole_gnn_tpu_torch.ops import nce
 from recbole_gnn_tpu_torch.ops.ell_spmm import reweight_ws, with_ws
 from recbole_gnn_tpu_torch.ops.graphops import sym_norm_weights
 from recbole_gnn_tpu_torch.ops.spmm import (BipartiteDenseGraph, spmm_any,
@@ -79,6 +80,8 @@ class SGL(GeneralGraphRecommender):
         self.ssl_weight = float(config.get("ssl_weight", 0.05))
         if self.aug_type not in ("ND", "ED", "RW"):
             raise ValueError(f"unknown SGL aug type {self.aug_type!r}")
+        if self.device.type == "cuda":   # the InfoNCE kernel's rows
+            nce.check_width(self.latent_dim, "SGL embedding_size")
         # activation_dtype: bfloat16 — the three propagations run on a
         # bf16 input (as the JAX package: each impl keeps the dtype its
         # SpMM gives: bf16 on ell and xla, f32 on pallas on the card and

@@ -8,8 +8,10 @@ pairwise losses take an optional per-row ``weight`` so that the
 weight-0 rows the loaders pad the last batch with contribute nothing.
 ``masked_unique`` / ``cl_nce_masked`` are SimGCL's and XSimGCL's
 contrastive loss over a batch's unique ids; ``info_nce`` takes its
-negatives from a whole table (SGL, NCL), through a chunked logsumexp
-when the (B, n) logits would exceed ``_NCE_CHUNK_ENTRIES`` entries.
+negatives from a whole table (SGL, NCL): on the card through the
+streaming kernel pair of ``ops/nce.py``, on the CPU through a chunked
+logsumexp when the (B, n) logits would exceed ``_NCE_CHUNK_ENTRIES``
+entries.
 
 Under data parallelism (``parallel/comm.batch_reduction``) each rank
 holds a slice of the batch and every loss here is the global batch's:
@@ -21,19 +23,20 @@ losses gather the batch's rows (or ids) from every rank first.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from recbole_gnn_tpu_torch.models.init import l2_normalize as _l2n
+from recbole_gnn_tpu_torch.ops import nce
 from recbole_gnn_tpu_torch.parallel.comm import (batch_gather,
                                                  batch_gather_ids,
                                                  batch_mean, batch_reducing,
                                                  batch_sum)
+from recbole_gnn_tpu_torch.utils import trace
 
-# (B, n) InfoNCE denominators above this many entries stream through
-# :func:`_chunked_lse` instead of materialising the logits (SGL's
-# all-node negatives at web scale would otherwise build a B × 1.1M
-# buffer); the JAX package's threshold
-_NCE_CHUNK_ENTRIES = 1 << 28
+# (B, n) InfoNCE denominators on the CPU above this many entries stream
+# through :func:`_chunked_lse` instead of materialising the logits
+# (SGL's all-node negatives at web scale would otherwise build a
+# B × 1.1M buffer); the JAX package's threshold
+_NCE_CHUNK_ENTRIES = nce.CHUNK_ENTRIES
 
 
 def _wmean(x: torch.Tensor, weight: torch.Tensor | None,
@@ -141,24 +144,11 @@ def cl_nce_masked(view1: torch.Tensor, view2: torch.Tensor,
     return loss.sum() / torch.clamp(mask.sum().to(loss.dtype), min=1.0)
 
 
-def _chunk_lse(v1: torch.Tensor, c: torch.Tensor, tau: float
-               ) -> torch.Tensor:
-    return torch.logsumexp(torch.matmul(v1, c.T) / tau, dim=-1)
-
-
 def _chunked_lse(v1: torch.Tensor, av2: torch.Tensor, tau: float
                  ) -> torch.Tensor:
-    """logsumexp of v1 @ av2ᵀ / tau over row chunks of ``av2``, as the
-    JAX package's ``_chunked_lse`` chunks it (at least 1,024 rows, about
-    ``_NCE_CHUNK_ENTRIES`` entries per block): each chunk's logsumexp
-    is checkpointed, so the backward recomputes its block instead of
-    keeping every one, and the chunks combine by one more logsumexp."""
-    b, n = v1.shape[0], av2.shape[0]
-    rows = min(max(1024, _NCE_CHUNK_ENTRIES // max(1, b)), n)
-    parts = [checkpoint(_chunk_lse, v1, av2[lo:lo + rows], tau,
-                        use_reentrant=False)
-             for lo in range(0, n, rows)]
-    return torch.logsumexp(torch.stack(parts, dim=-1), dim=-1)
+    """The plain version's chunked logsumexp at this module's threshold
+    (``ops/nce.py::chunked_lse``)."""
+    return nce.chunked_lse(v1, av2, tau, _NCE_CHUNK_ENTRIES)
 
 
 def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
@@ -168,7 +158,12 @@ def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
     """InfoNCE between aligned rows of two views: the positive is
     cos(view1ᵢ, view2ᵢ), the negatives every row of ``all_view2``
     (default view2: the global batch's rows), all L2-normalised inside;
-    'sum' (SGL, NCL) or weighted 'mean'."""
+    'sum' (SGL, NCL) or weighted 'mean'.  The logsumexp over the
+    negatives runs the kernel pair on a card (``ops/nce.py::nce_lse``)
+    and the plain version on the CPU; counters ``nce_calls`` (every
+    call, here) and ``nce_kernel`` (calls served by the kernel, counted
+    at its launch) go to the innermost open span
+    (``utils/trace.py``)."""
     in_batch = all_view2 is None
     if in_batch:
         view1, view2 = batch_gather(view1), batch_gather(view2)
@@ -177,10 +172,12 @@ def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
     v2 = _l2n(view2)
     av2 = v2 if all_view2 is None else _l2n(all_view2)
     pos = (v1 * v2).sum(-1) / temperature
-    if v1.shape[0] * av2.shape[0] > _NCE_CHUNK_ENTRIES:
+    if v1.device.type == "cpu" and \
+            v1.shape[0] * av2.shape[0] > _NCE_CHUNK_ENTRIES:
         lse = _chunked_lse(v1, av2, temperature)
     else:
-        lse = torch.logsumexp(torch.matmul(v1, av2.T) / temperature, dim=-1)
+        lse = nce.nce_lse(v1, av2, temperature)
+    trace.count("nce_calls", 1)
     loss = lse - pos
     if reduction == "sum":
         return _wsum(loss, weight, over_ranks=not in_batch)

@@ -8,7 +8,9 @@ takes its plain PyTorch version for CPU tensors only:
     CSR as its backward (``sparse_spmm_impl: pallas``);
   * ``gather.row_gather`` (D2) and ``segment_sum.block_segment_sum``
     (D1) — the two halves of ``sparse_spmm_impl: xla``
-    (``spmm.xla_spmm``), forward and backward.
+    (``spmm.xla_spmm``), forward and backward;
+  * ``nce.nce_lse`` — the all-node InfoNCE's logsumexp and its
+    gradient (SGL, NCL), with no (B, n) logits in memory.
 
 The rest is plain PyTorch.
 """
